@@ -1,0 +1,68 @@
+"""Masked multi-head attention (counterpart of ``vidsgg/models/attention.py``).
+
+Semantics of ``torch.nn.MultiheadAttention`` (packed q/k/v in-projection,
+scaled dot product, softmax over allowed keys, out-projection) with the
+masking written out: a fully masked row gives all-zero weights, where
+``F.scaled_dot_product_attention`` gives NaN. Parameter names are
+``nn.MultiheadAttention``'s, so reference checkpoints load as they are.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_NEG_INF = -1e9
+
+
+def masked_softmax(scores: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """Softmax over the last axis restricted to mask==True keys; rows with
+    no allowed key return zeros."""
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.full_like(scores, _NEG_INF))
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - m)
+    if mask is not None:
+        e = torch.where(mask, e, torch.zeros_like(e))
+    denom = e.sum(dim=-1, keepdim=True)
+    return e / torch.clamp(denom, min=1e-30)
+
+
+class MultiheadAttention(nn.Module):
+    """q/k/v: [..., T, D]; attn_mask broadcastable to [..., H, Tq, Tk]
+    (a [..., Tq, Tk] mask is shared by every head). Inference only."""
+
+    def __init__(self, embed_dim: int, num_heads: int, bias: bool = True,
+                 out_bias: bool = True):
+        super().__init__()
+        if embed_dim % num_heads:
+            raise ValueError("embed_dim must be divisible by num_heads")
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim)) if bias else None
+        self.out_proj = nn.Linear(embed_dim, embed_dim, bias=out_bias)
+
+    def forward(self, q, k, v, attn_mask=None):
+        d, h = self.embed_dim, self.num_heads
+        hd = d // h
+        w = self.in_proj_weight
+        b = self.in_proj_bias
+        bq, bk, bv = (None, None, None) if b is None else (b[:d], b[d:2 * d], b[2 * d:])
+        wq = F.linear(q.to(w.dtype), w[:d], bq)
+        wk = F.linear(k.to(w.dtype), w[d:2 * d], bk)
+        wv = F.linear(v.to(w.dtype), w[2 * d:], bv)
+
+        def split(x):  # [..., T, D] -> [..., H, T, hd]
+            return x.reshape(x.shape[:-1] + (h, hd)).transpose(-3, -2)
+
+        qh, kh, vh = split(wq), split(wk), split(wv)
+        scores = torch.matmul(qh, kh.transpose(-1, -2)) / math.sqrt(hd)
+        if attn_mask is not None and attn_mask.dim() == scores.dim() - 1:
+            attn_mask = attn_mask[..., None, :, :]
+        out = torch.matmul(masked_softmax(scores, attn_mask), vh)
+        out = out.transpose(-3, -2).reshape(q.shape[:-1] + (d,))
+        return self.out_proj(out)

@@ -1,0 +1,226 @@
+"""On-device sgdet test-time postprocess (counterpart of the sgdet part of
+``vidsgg/models/postprocess_device.py``).
+
+``clean_class`` duplication for classes {5, 8, 17} on a statically expanded
+object axis, per-(frame, argmax-class) greedy NMS at IoU 0.6, the
+reference's (frame, class)-lexsorted re-ordering, label assignment + human
+selection, pair rebuild. Masked ops on padded buffers; no host sync.
+
+Exactness notes (as in ``vidsgg``): clean_class growth is bounded by the
+``expand`` factor and an overflow flag reports truncation; the post-NMS
+lexsort is stable over the NMS-keep order, i.e. score-descending within
+each (frame, class) group, reproduced by keying on the global score rank.
+Every ``argsort(stable=True)`` is a stable ``torch.sort``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch.profiler import record_function
+
+from vidsgg_torch.data.entry import Entry
+
+_NEG = -1e9
+_BIG = 2 ** 31 - 1
+EXPAND = 2                   # object-axis growth bound for clean_class
+NMS_THRESH = 0.6             # per-(frame, class) NMS (lib/tempura.py:369)
+CLEAN_CLASSES = (5, 8, 17)   # classes clean_class duplicates
+
+
+def _stable_argsort(keys):
+    return torch.sort(keys, stable=True).indices
+
+
+def _rows(mask, like):
+    return mask.reshape((-1,) + (1,) * (like.dim() - 1))
+
+
+def _pairwise_iou(boxes4):
+    """Inclusive (+1) IoU matrix."""
+    area = (boxes4[:, 2] - boxes4[:, 0] + 1) * (boxes4[:, 3] - boxes4[:, 1] + 1)
+    iw = (torch.minimum(boxes4[:, None, 2], boxes4[None, :, 2])
+          - torch.maximum(boxes4[:, None, 0], boxes4[None, :, 0]) + 1)
+    ih = (torch.minimum(boxes4[:, None, 3], boxes4[None, :, 3])
+          - torch.maximum(boxes4[:, None, 1], boxes4[None, :, 1]) + 1)
+    inter = iw.clamp(min=0) * ih.clamp(min=0)
+    return inter / (area[:, None] + area[None, :] - inter)
+
+
+def _clean_round(fields: dict, valid, frame, cls: int):
+    """One clean_class round: duplicate boxes whose current pred_label == cls
+    with the class column zeroed and the runner-up label, appended per frame
+    after that frame's current rows."""
+    m = valid.shape[0]
+    dev = valid.device
+    dist = fields["distribution"]
+    dup_src = valid & (fields["pred_labels"] == cls)
+    dup_dist = dist.clone()
+    dup_dist[:, cls - 1] = 0.0
+    dup_fields = dict(fields)
+    dup_fields["distribution"] = dup_dist
+    dup_fields["pred_labels"] = (dup_dist.argmax(1) + 1).to(fields["pred_labels"].dtype)
+    dup_fields["scores"] = dup_dist.max(1).values
+
+    slot = torch.arange(m, device=dev)
+    big = torch.full_like(slot, _BIG)
+    frame = frame.long()
+    key_orig = torch.where(valid, frame * (2 * m) + slot, big)
+    key_dup = torch.where(dup_src, frame * (2 * m) + m + slot, big)
+    keys = torch.cat([key_orig, key_dup])
+    order = _stable_argsort(keys)[:m]
+    src = order % m
+    from_dup = order >= m
+    new_valid = keys[order] < _BIG
+    overflow = dup_src.sum() + valid.sum() > m
+
+    out = {}
+    for k, v in fields.items():
+        picked = torch.where(_rows(from_dup, v), dup_fields[k][src], v[src])
+        if v.dtype == torch.bool:
+            out[k] = picked & new_valid
+        else:
+            out[k] = picked * _rows(new_valid, picked).to(picked.dtype)
+    return out, new_valid, frame[src] * new_valid, overflow
+
+
+def _grouped_nms(boxes4, scores, group, valid, thresh):
+    """Greedy NMS restricted to same-group boxes, in global score-descending
+    (stable) order. A Python loop of one step per object slot (512 at the
+    serving capacity), each a few small device operations with no sync."""
+    m = valid.shape[0]
+    iou = _pairwise_iou(boxes4)
+    same = group[:, None] == group[None, :]
+    inf = torch.full_like(scores, float("inf"))
+    sorted_idx = _stable_argsort(torch.where(valid, -scores, inf))
+    # in ranked order: s_k suppresses s_j when same group and IoU > thresh
+    sup = (same & (iou > thresh))[sorted_idx][:, sorted_idx]
+    v_sorted = valid[sorted_idx]
+    keep_sorted = torch.zeros(m, dtype=torch.bool, device=valid.device)
+    for k in range(m):
+        keep_sorted[k] = v_sorted[k] & ~(keep_sorted & sup[k]).any()
+    keep = torch.zeros_like(keep_sorted).scatter(0, sorted_idx, keep_sorted)
+    rank = torch.zeros(m, dtype=torch.int64, device=valid.device).scatter(
+        0, sorted_idx, torch.arange(m, device=valid.device))
+    return keep, rank
+
+
+def _labels_and_human(dist, frame, valid, frame_mask):
+    """distribution[:, 1:] argmax + 2; per-frame human = best person score."""
+    f_cap = frame_mask.shape[0]
+    n = dist.shape[0]
+    dev = dist.device
+    zero = torch.zeros((), dtype=dist.dtype, device=dev)
+    pred_scores = torch.where(valid, dist[:, 1:].max(1).values, zero)
+    pred_labels = torch.where(valid, dist[:, 1:].argmax(1) + 2, 0)
+    in_frame = (frame[None, :] == torch.arange(f_cap, device=dev)[:, None]) & valid[None, :]
+    person_scores = torch.where(in_frame, dist[None, :, 0],
+                                torch.full((), _NEG, dtype=dist.dtype, device=dev))
+    human_idx = person_scores.argmax(1)
+    frame_has_box = in_frame.any(1) & frame_mask
+    is_human = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+    is_human[torch.where(frame_has_box, human_idx, n)] = True
+    is_human = is_human[:n]
+    pred_labels = torch.where(is_human, 1, pred_labels)
+    pred_scores = torch.where(is_human, dist[:, 0], pred_scores)
+    return pred_labels, pred_scores, human_idx, frame_has_box
+
+
+def _rebuild_pairs_device(frame, valid, labels, human_idx, frame_has_box,
+                          f_cap, p_cap):
+    """human x non-person boxes per frame, frame-major."""
+    is_obj = valid & (labels != 1) & frame_has_box[torch.clamp(frame, 0, f_cap - 1)]
+    order = _stable_argsort(torch.where(is_obj, frame, f_cap + 1))
+    slot_valid = is_obj[order]
+    pair_frame = frame[order]
+    pair_human = human_idx[torch.clamp(pair_frame, 0, f_cap - 1)]
+    im_idx = torch.where(slot_valid, pair_frame, 0)[:p_cap]
+    pair_idx = torch.stack(
+        [torch.where(slot_valid, pair_human, 0), torch.where(slot_valid, order, 0)],
+        dim=1,
+    )[:p_cap]
+    return im_idx.to(torch.int32), pair_idx.to(torch.int32), slot_valid[:p_cap]
+
+
+def sgdet_postprocess_device(entry: Entry, distribution: torch.Tensor,
+                             mem_features: torch.Tensor):
+    """entry (detector labels in ``pred_labels``) + OSPU test distribution ->
+    (relabeled entry on an ``EXPAND * N`` object axis, gathered mem
+    features, overflow flag). Pair capacity = expanded object capacity."""
+    n = distribution.shape[0]
+    m = EXPAND * n
+    ncls = distribution.shape[1]
+    f_cap = entry.frame_mask.shape[0]
+    dev = distribution.device
+
+    def grow(a):
+        out = a.new_zeros((m,) + a.shape[1:])
+        out[:n] = a
+        return out
+
+    fields = {
+        "boxes": grow(entry.boxes),
+        "distribution": grow(distribution * entry.obj_mask[:, None]),
+        "features": grow(entry.features),
+        "mem_features": grow(mem_features),
+        # clean_class keys off the detector's labels before OSPU relabeling
+        "pred_labels": grow(entry.pred_labels.to(torch.int32)),
+        "scores": grow(entry.scores),
+        "labels": grow(entry.labels.to(torch.int32)),
+    }
+    valid = grow(entry.obj_mask)
+    frame = fields["boxes"][:, 0].long()
+
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    for cls in CLEAN_CLASSES:
+        fields, valid, frame, ovf = _clean_round(fields, valid, frame, cls)
+        overflow = overflow | ovf
+
+    dist = fields["distribution"]
+    argmax_cls = dist.argmax(1)
+    group = frame * ncls + argmax_cls
+    with record_function("vidsgg.grouped_nms"):
+        keep, rank = _grouped_nms(fields["boxes"][:, 1:], dist.max(1).values, group,
+                                  valid, NMS_THRESH)
+
+    key = torch.where(keep, (frame * ncls + argmax_cls) * m + rank,
+                      torch.full_like(rank, _BIG))
+    order = _stable_argsort(key)
+    new_valid = key[order] < _BIG
+    for k in fields:
+        v = fields[k][order]
+        fields[k] = v & new_valid if v.dtype == torch.bool else v * _rows(new_valid, v).to(v.dtype)
+    valid = new_valid
+    frame = fields["boxes"][:, 0].long() * valid
+
+    dist = fields["distribution"]
+    pred_labels, pred_scores, human_idx, frame_has_box = _labels_and_human(
+        dist, frame, valid, entry.frame_mask)
+    im_idx, pair_idx, pair_mask = _rebuild_pairs_device(
+        frame, valid, pred_labels, human_idx, frame_has_box, f_cap, m)
+
+    union_hw = entry.union_feat.shape[1]
+    union_ch = entry.union_feat.shape[-1]
+    mask_s = entry.spatial_masks.shape[-1]
+    f32 = torch.float32
+    entry2 = dataclasses.replace(
+        entry,
+        boxes=fields["boxes"],
+        labels=fields["labels"],
+        scores=pred_scores,
+        distribution=dist,
+        pred_labels=pred_labels.to(torch.int32),
+        features=fields["features"],
+        obj_mask=valid,
+        im_idx=im_idx,
+        pair_idx=pair_idx,
+        pair_mask=pair_mask,
+        union_feat=torch.zeros((m, union_hw, union_hw, union_ch), dtype=f32, device=dev),
+        spatial_masks=torch.zeros((m, 2, mask_s, mask_s), dtype=f32, device=dev),
+        attention_gt=torch.zeros((m,), dtype=torch.int32, device=dev),
+        spatial_gt=torch.zeros((m, entry.spatial_gt.shape[1]), dtype=f32, device=dev),
+        contacting_gt=torch.zeros((m, entry.contacting_gt.shape[1]), dtype=f32, device=dev),
+        human_idx=human_idx.to(torch.int32),
+    )
+    return entry2, fields["mem_features"], overflow

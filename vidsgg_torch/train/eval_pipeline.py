@@ -1,0 +1,176 @@
+"""sgdet evaluation pipeline (counterpart of the sgdet branch of
+``vidsgg/train/eval_pipeline.py``).
+
+The fused stage: OSPU classify -> on-device clean_class + grouped NMS +
+relabel + pair rebuild on the expanded object axis -> union refeaturize ->
+relation forward. When it reports overflow (clean_class growth past the
+expanded axis, or a frame with more pairs than ``union_pairs_per_frame``),
+the exact host path runs instead: OSPU classify -> NumPy postprocess ->
+repacked Entry -> union ROIAlign -> relation forward. The result is an
+evaluator-ready NumPy pred dict.
+
+predcls and sgcls come with a later slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from vidsgg_torch.data.entry import Entry, EntryCapacity
+from vidsgg_torch.detector.featurize import (
+    pair_union_features,
+    pair_union_features_grouped,
+)
+from vidsgg_torch.device import resolve_device
+from vidsgg_torch.eval.adapter import to_eval_pred
+from vidsgg_torch.models.postprocess import ObjectsView, sgdet_postprocess
+from vidsgg_torch.models.postprocess_device import sgdet_postprocess_device
+from vidsgg_torch.train.state import ServingState
+
+
+def _classify_stage(state: ServingState, entry: Entry):
+    return state.model.classify_objects(
+        entry, obj_memory=state.obj_memory, mem_active=state.mem_active)
+
+
+def _relation_stage(state: ServingState, entry: Entry, obj_mem_features, fmaps):
+    union_feat, _, spatial_masks = pair_union_features(entry, fmaps)
+    entry = dataclasses.replace(entry, union_feat=union_feat, spatial_masks=spatial_masks)
+    out = state.model.relation_forward(
+        entry, obj_mem_features, rel_memory=state.rel_memory,
+        mem_active=state.mem_active)
+    return entry, out
+
+
+def _sgdet_fused(state: ServingState, entry: Entry, fmaps, union_ppf: int):
+    """The whole sgdet test step on the device. Returns (entry2, out,
+    overflow); the caller re-runs the exact host path on overflow."""
+    with record_function("vidsgg.classify"):
+        aux = _classify_stage(state, entry)
+    with record_function("vidsgg.postprocess"):
+        entry2, mem2, overflow = sgdet_postprocess_device(
+            entry, aux["distribution"], aux["object_mem_features"])
+    with record_function("vidsgg.union_features"):
+        union_feat, _, spatial_masks, u_ovf = pair_union_features_grouped(
+            entry2, fmaps, union_ppf)
+    entry2 = dataclasses.replace(entry2, union_feat=union_feat,
+                                 spatial_masks=spatial_masks)
+    with record_function("vidsgg.relation_forward"):
+        out = state.model.relation_forward(
+            entry2, mem2, rel_memory=state.rel_memory, mem_active=state.mem_active)
+    return entry2, out, overflow | u_ovf
+
+
+def _pad_rows(arr: np.ndarray, cap: int) -> np.ndarray:
+    out = np.zeros((cap,) + arr.shape[1:], arr.dtype)
+    out[: len(arr)] = arr
+    return out
+
+
+def _rebuild_entry(entry: Entry, o: ObjectsView, human_idx, im_idx, pairs,
+                   cap: EntryCapacity):
+    """Pack the postprocessed host view back into a padded Entry on the
+    entry's device. Returns (entry, mem_features_padded)."""
+    n = len(o.boxes)
+    p = len(im_idx)
+    if n > cap.max_objs or p > cap.max_pairs:
+        raise ValueError(
+            f"postprocessed video ({n} objs, {p} pairs) exceeds capacity {cap}")
+    dev = entry.device
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    base = Entry.zeros(cap, num_classes=entry.distribution.shape[1] + 1, device=dev)
+    new = dataclasses.replace(
+        base,
+        boxes=t(_pad_rows(o.boxes.astype(np.float32), cap.max_objs)),
+        labels=t(_pad_rows(o.labels.astype(np.int32), cap.max_objs)),
+        scores=t(_pad_rows(o.pred_scores.astype(np.float32), cap.max_objs)),
+        distribution=t(_pad_rows(o.distribution.astype(np.float32), cap.max_objs)),
+        pred_labels=t(_pad_rows(o.pred_labels.astype(np.int32), cap.max_objs)),
+        features=t(_pad_rows(o.features.astype(np.float32), cap.max_objs)),
+        obj_mask=t(np.arange(cap.max_objs) < n),
+        im_idx=t(_pad_rows(im_idx.astype(np.int32), cap.max_pairs)),
+        pair_idx=t(_pad_rows(pairs.astype(np.int32), cap.max_pairs)),
+        pair_mask=t(np.arange(cap.max_pairs) < p),
+        human_idx=t(_pad_rows(human_idx.astype(np.int32), cap.max_frames)),
+        frame_mask=entry.frame_mask,
+        im_scale=entry.im_scale,
+        num_frames=entry.num_frames,
+        video_size=entry.video_size,
+    )
+    mem = t(_pad_rows(o.mem_features.astype(np.float32), cap.max_objs))
+    return new, mem
+
+
+@dataclasses.dataclass
+class EvalPipeline:
+    mode: str
+    cap: EntryCapacity
+    # per-frame pair bound of the grouped union pooling; the sgdet postprocess
+    # doubles the object axis, so 2 * dets_per_frame covers every frame
+    union_pairs_per_frame: int = 32
+    device: object = None
+
+    def __post_init__(self):
+        # "device" or "host": which route the last call took
+        self.last_route = None
+        if self.mode != "sgdet":
+            raise NotImplementedError(
+                f"EvalPipeline: mode {self.mode!r} is not ported yet (sgdet only)")
+        self.device = resolve_device(self.device)
+
+    @torch.inference_mode()
+    def __call__(self, state: ServingState, entry: Entry, fmaps, gt_entry=None):
+        """One video: detector Entry + base feature maps [F, H, W, 1024] ->
+        evaluator-ready pred dict (NumPy)."""
+        entry = entry.to(self.device)
+        fmaps = torch.as_tensor(fmaps, device=self.device)
+        entry2, out, overflow = _sgdet_fused(state, entry, fmaps,
+                                             self.union_pairs_per_frame)
+        if not bool(overflow):
+            self.last_route = "device"
+            return self._attach_gt(to_eval_pred(entry2, out, self.mode), gt_entry)
+        self.last_route = "host"
+
+        # rare truncation: the exact host path
+        aux = _classify_stage(state, entry)
+        n = int(entry.obj_mask.sum())
+        num_frames = int(entry.num_frames)
+        dist = aux["distribution"][:n].cpu().numpy()
+        o = ObjectsView(
+            boxes=entry.boxes[:n].cpu().numpy(),
+            distribution=dist.copy(),
+            features=entry.features[:n].cpu().numpy(),
+            mem_features=aux["object_mem_features"][:n].cpu().numpy(),
+            # clean_class reads the detector's labels before OSPU relabeling
+            pred_labels=entry.pred_labels[:n].cpu().numpy().astype(np.int64),
+            pred_scores=np.zeros(n, np.float32),
+            labels=entry.labels[:n].cpu().numpy(),
+        )
+        o, human_idx, im_idx, pairs = sgdet_postprocess(o, num_frames)
+        eval_cap = EntryCapacity(self.cap.max_frames, self.cap.max_objs,
+                                 max(self.cap.max_objs, self.cap.max_pairs))
+        entry2, mem = _rebuild_entry(entry, o, human_idx, im_idx, pairs, eval_cap)
+        entry2, out = _relation_stage(state, entry2, mem, fmaps)
+        return self._attach_gt(to_eval_pred(entry2, out, self.mode), gt_entry)
+
+    @staticmethod
+    def _attach_gt(pred, gt_entry):
+        """The GT predicate lists in the original GT pair order (read by the
+        temporal-consistency metric)."""
+        if gt_entry is None:
+            return pred
+        pgt = int(gt_entry.pair_mask.sum())
+        att = gt_entry.attention_gt.cpu().numpy()
+        sp = gt_entry.spatial_gt.cpu().numpy()
+        con = gt_entry.contacting_gt.cpu().numpy()
+        pred["attention_gt"] = [[int(x)] for x in att[:pgt]]
+        pred["spatial_gt"] = [np.where(r > 0)[0].tolist() for r in sp[:pgt]]
+        pred["contacting_gt"] = [np.where(r > 0)[0].tolist() for r in con[:pgt]]
+        return pred
