@@ -13,7 +13,7 @@ prints, per video:
    with the host time spent inside the range and the device time of the
    kernels launched from it;
 2. the device time by kernel name, and the device's busy share (kernel
-   time over wall time);
+   time over wall time); the port's own NMS kernel on lines of its own;
 3. the peak memory the backbone and the RPN head allocate beyond their
    input, from one direct call of each.
 
@@ -45,6 +45,7 @@ from vidsgg_torch.serving_setup import (  # noqa: E402
 )
 
 RANGE_PREFIX = "vidsgg."
+OWN_KERNEL = "nms_tile_kernel"
 
 
 def stage_times(events, videos: int) -> dict:
@@ -126,11 +127,17 @@ def main():
         print(f"[stage] host {host:9.2f} ms  device {dev:9.2f} ms  {name}", flush=True)
     for name, ms, count in kernels[:15]:
         print(f"[kernel] {ms:9.3f} ms  x{count:<7g} {name[:110]}", flush=True)
+    # the port's own kernels are launched through ctypes, outside the
+    # dispatcher, so the stage ranges above do not count their device time
+    own = [(k, ms, c) for k, ms, c in kernels if OWN_KERNEL in k]
+    for name, ms, count in own:
+        print(f"[own kernel] {ms:9.4f} ms  x{count:<7g} {name[:110]}", flush=True)
     print(json.dumps({
         "device": smi, "videos": args.videos, "wall_ms": wall_ms,
         "device_kernel_ms": device_ms, "busy_share": device_ms / wall_ms,
         "stages_ms": {k: dict(host=h, device=d) for k, (h, d) in stages.items()},
         "top_kernels": [dict(name=k[:200], ms=ms, count=c) for k, ms, c in kernels[:15]],
+        "own_kernels": [dict(name=k[:200], ms=ms, count=c) for k, ms, c in own],
         "peak_extra_bytes": {"backbone": backbone_peak, "rpn_head": rpn_peak},
     }), flush=True)
     return 0

@@ -1,6 +1,8 @@
 """Card-only tests: the hand-written CUDA NMS kernel against its plain
-PyTorch version on the same CUDA tensors. Tolerance: exact (keep masks are
-booleans). Skipped where there is no CUDA card.
+PyTorch version on the same CUDA tensors, through all three of its call
+contracts (presorted with max_keep, ranked inside the call, grouped with
+ranks). Tolerance: exact (keep masks are booleans, ranks integers).
+Skipped where there is no CUDA card.
 
 This file imports neither JAX nor ``vidsgg``, so it also runs on a machine
 without them: ``python -m pytest --noconftest -q tests/test_torch_cuda.py``.
@@ -30,7 +32,18 @@ def _problems(rng, g, n, span=400.0):
     ((16 * 36, 100), 0.4, None, False),    # the (frame, class) grid
     ((3, 1), 0.5, None, False),
     ((5, 257), 0.5, None, False),          # not a multiple of the block width
-    ((4, 11000), 0.5, 7, False),           # near the shared-memory ceiling
+    ((4, 11000), 0.5, 7, False),           # ranked by torch (N > 1024), then scanned
+    ((6, 31), 0.5, None, False),           # tile boundaries, ranked in the kernel
+    ((6, 32), 0.5, None, False),
+    ((6, 33), 0.5, None, False),
+    ((6, 64), 0.5, None, False),
+    ((6, 65), 0.5, None, False),
+    ((3, 1024), 0.5, None, False),
+    ((3, 1025), 0.5, None, False),
+    ((6, 65), 0.5, None, True),
+    ((6, 1025), 0.3, None, True),
+    ((5, 200), 0.3, 40, True),             # max_keep reached inside a tile
+    ((5, 200), 0.3, 40, False),
 ])
 def test_kernel_matches_plain(cuda_device, shape, thresh, max_keep, presorted):
     rng = np.random.RandomState(0)
@@ -60,11 +73,48 @@ def test_identical_boxes_keep_one(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,groups", [(512, 6), (33, 1), (300, 300), (1100, 4)])
+def test_grouped_matches_plain(cuda_device, dtype, m, groups):
+    """Keep and rank bit-equal; a single group, one group per box, and an
+    M past the in-kernel ranking (torch ranks, the kernel scans)."""
+    rng = np.random.RandomState(m)
+    xy = rng.randint(0, 60, size=(m, 2))
+    boxes = np.concatenate([xy, xy + rng.randint(4, 20, size=(m, 2))], 1)
+    boxes[:2] = [(0, 0, 9, 9), (0, 0, 9, 5)]       # IoU exactly 0.6
+    scores = rng.randint(0, 10, size=m) / 10.0       # ties
+    group = rng.randint(0, groups, size=m) if groups < m else np.arange(m)
+    group[:2] = 0
+    valid = rng.rand(m) > 0.3
+    valid[:2] = True
+    b, s = (torch.tensor(x, dtype=dtype, device=cuda_device) for x in (boxes, scores))
+    g = torch.from_numpy(group).to(cuda_device)
+    v = torch.from_numpy(valid).to(cuda_device)
+    before = tnms.NMS_KERNEL.launches_by.get("grouped", 0)
+    keep, rank = tnms.grouped_nms(b, s, g, v, 0.6)
+    torch.cuda.synchronize()
+    assert tnms.NMS_KERNEL.launches_by["grouped"] == before + 1
+    want_keep, want_rank = tnms.grouped_nms_plain(b, s, g, v, 0.6)
+    assert torch.equal(keep, want_keep) and torch.equal(rank, want_rank)
+    assert keep[0] and keep[1]
+    if groups == m:
+        assert torch.equal(keep, v)
+    if groups == 1:
+        order = torch.argsort(rank)
+        ungrouped = tnms.nms_sorted_plain(b[order][None], v[order][None], 0.6)[0]
+        assert torch.equal(keep[order], ungrouped)
+
+
+@pytest.mark.cuda
 def test_kernel_refuses_what_it_cannot_take(cuda_device):
-    n = tnms.max_boxes_per_problem() + 1
+    # presorted without max_keep keeps up to N boxes in shared memory
+    n = 1024
+    while tnms.smem_bytes(n) <= tnms._SMEM_LIMIT:
+        n *= 2
     b = torch.zeros((1, n, 4), device=cuda_device)
     v = torch.ones((1, n), dtype=torch.bool, device=cuda_device)
     with pytest.raises(ValueError):
         tnms.nms_sorted_cuda(b, v, 0.5)
+    tnms.nms_sorted_cuda(b, v, 0.5, max_keep=100)   # with max_keep it fits
     with pytest.raises(TypeError):
-        tnms.nms_sorted_cuda(b[:, :8].double(), v[:, :8], 0.5)
+        tnms.nms_sorted_cuda(b[:, :8].half(), v[:, :8], 0.5)

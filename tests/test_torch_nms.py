@@ -1,14 +1,17 @@
-"""K1 (greedy NMS) in the port against ``vidsgg``.
+"""Greedy NMS in the port against ``vidsgg``: K1, K2 and the grouped NMS.
 
 Tolerance: exact. Keep masks are booleans and must agree bit for bit with
-``vidsgg.ops.nms.nms_mask`` (vmapped) and with the Pallas kernel
-``nms_mask_pallas_batched`` run in interpret mode. With ``max_keep`` the
+``vidsgg.ops.nms.nms_mask`` (vmapped), with the Pallas kernels
+``nms_mask_pallas_batched`` and ``nms_mask_pallas`` run in interpret mode,
+and (keep and rank) with ``vidsgg``'s ``_grouped_nms`` in float32 and, under
+``jax.enable_x64``, float64. With ``max_keep`` the
 Pallas kernel guarantees only each problem's first ``max_keep`` keeps (and
 may mark more), while the port marks exactly those: the comparison is on
 that prefix. The CUDA kernel is held to the plain version on the card in
 ``test_torch_cuda.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,7 +19,8 @@ import torch
 
 from vidsgg.ops.nms import batched_class_nms as jax_batched_class_nms
 from vidsgg.ops.nms import nms_mask as jax_nms_mask
-from vidsgg.ops.pallas_nms import nms_mask_pallas_batched
+from vidsgg.models.postprocess_device import _grouped_nms as jax_grouped_nms
+from vidsgg.ops.pallas_nms import nms_mask_pallas, nms_mask_pallas_batched
 from vidsgg_torch.ops import nms as tnms
 
 
@@ -131,3 +135,78 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     v = torch.ones((1, 4), dtype=torch.bool)
     with pytest.raises(ValueError):
         tnms.nms_sorted_cuda(b, v, 0.5)
+
+
+# --- K2 (nms_mask_pallas: ranking inside the call, no max_keep, no presort)
+
+def _tied(rng, shape, n, levels=6):
+    """Scores on a few levels, so many ties must keep index order."""
+    return (rng.randint(0, levels, size=(*shape, n)) / levels).astype(np.float32)
+
+
+@pytest.mark.parametrize("thresh", [0.4, 0.7])
+def test_k2_contract_matches_pallas_interpret(thresh):
+    rng = np.random.RandomState(11)
+    boxes, _, valid = _problems(rng, (3, 4), 130, span=50.0)
+    scores = _tied(rng, (3, 4), 130)
+    valid[1, 2] = False                    # one all-invalid problem
+    want = np.asarray(nms_mask_pallas(jnp.asarray(boxes), jnp.asarray(scores),
+                                      jnp.asarray(valid), thresh, True))
+    np.testing.assert_array_equal(_port(boxes, scores, valid, thresh), want)
+
+
+# --- the relation stage's grouped NMS against vidsgg's _grouped_nms
+
+def _grouped_problem(m=512, seed=6):
+    """M slots on an integer grid (exact IoUs), several groups, tied scores,
+    invalid slots, and planted pairs at IoU exactly 0.6 and just above."""
+    rng = np.random.RandomState(seed)
+    xy = rng.randint(0, 40, size=(m, 2)).astype(np.float64)
+    wh = rng.randint(4, 20, size=(m, 2)).astype(np.float64)
+    boxes = np.concatenate([xy, xy + wh], 1)
+    group = rng.randint(0, 6, size=m).astype(np.int64)
+    scores = rng.randint(0, 10, size=m) / 10.0
+    valid = rng.rand(m) > 0.3
+    # (0, 0, 9, 9) has area 100; (0, 0, 9, 5) area 60 inside it: IoU 0.6
+    boxes[0], boxes[1] = (0, 0, 9, 9), (0, 0, 9, 5)
+    boxes[2], boxes[3] = (100, 100, 109, 109), (100, 100, 109, 106)   # IoU 0.7
+    group[:4], scores[:4], valid[:4] = 7, (0.95, 0.9, 0.95, 0.9), True
+    return boxes, scores, group, valid
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_grouped_nms_matches_vidsgg(dtype):
+    boxes, scores, group, valid = _grouped_problem()
+    boxes, scores = boxes.astype(dtype), scores.astype(dtype)
+    with jax.enable_x64(dtype == np.float64):
+        jkeep, jrank = jax_grouped_nms(jnp.asarray(boxes), jnp.asarray(scores),
+                                       jnp.asarray(group), jnp.asarray(valid), 0.6)
+        jkeep, jrank = np.asarray(jkeep), np.asarray(jrank)
+    keep, rank = tnms.grouped_nms(torch.from_numpy(boxes), torch.from_numpy(scores),
+                                  torch.from_numpy(group), torch.from_numpy(valid), 0.6)
+    assert keep.dtype == torch.bool and rank.dtype == torch.int32
+    np.testing.assert_array_equal(keep.numpy(), jkeep)
+    np.testing.assert_array_equal(rank.numpy(), jrank)
+    assert keep[0] and keep[1]             # IoU == threshold: both kept
+    assert keep[2] and not keep[3]         # IoU above it: the lower score goes
+    assert 0 < keep.sum() < valid.sum()
+
+
+@pytest.mark.parametrize("max_keep", [None, 5])
+def test_plain_single_group_equals_ungrouped(max_keep):
+    rng = np.random.RandomState(8)
+    boxes, _, valid = _problems(rng, (4,), 70, span=30.0)
+    b, v = torch.from_numpy(boxes), torch.from_numpy(valid)
+    one = torch.zeros(v.shape, dtype=torch.int64)
+    got = tnms.nms_sorted_plain(b, v, 0.5, max_keep, group=one)
+    assert torch.equal(got, tnms.nms_sorted_plain(b, v, 0.5, max_keep))
+    assert int(got.sum()) < int(v.sum())
+
+
+def test_plain_group_per_box_keeps_every_valid_box():
+    rng = np.random.RandomState(9)
+    boxes, _, valid = _problems(rng, (3,), 50, span=10.0)
+    v = torch.from_numpy(valid)
+    own = torch.arange(v.numel()).reshape(v.shape)
+    got = tnms.nms_sorted_plain(torch.from_numpy(boxes), v, 0.3, group=own)
+    assert torch.equal(got, v)

@@ -21,6 +21,7 @@ import torch
 from torch.profiler import record_function
 
 from vidsgg_torch.data.entry import Entry
+from vidsgg_torch.ops.nms import grouped_nms
 
 _NEG = -1e9
 _BIG = 2 ** 31 - 1
@@ -35,17 +36,6 @@ def _stable_argsort(keys):
 
 def _rows(mask, like):
     return mask.reshape((-1,) + (1,) * (like.dim() - 1))
-
-
-def _pairwise_iou(boxes4):
-    """Inclusive (+1) IoU matrix."""
-    area = (boxes4[:, 2] - boxes4[:, 0] + 1) * (boxes4[:, 3] - boxes4[:, 1] + 1)
-    iw = (torch.minimum(boxes4[:, None, 2], boxes4[None, :, 2])
-          - torch.maximum(boxes4[:, None, 0], boxes4[None, :, 0]) + 1)
-    ih = (torch.minimum(boxes4[:, None, 3], boxes4[None, :, 3])
-          - torch.maximum(boxes4[:, None, 1], boxes4[None, :, 1]) + 1)
-    inter = iw.clamp(min=0) * ih.clamp(min=0)
-    return inter / (area[:, None] + area[None, :] - inter)
 
 
 def _clean_round(fields: dict, valid, frame, cls: int):
@@ -85,27 +75,6 @@ def _clean_round(fields: dict, valid, frame, cls: int):
     return out, new_valid, frame[src] * new_valid, overflow
 
 
-def _grouped_nms(boxes4, scores, group, valid, thresh):
-    """Greedy NMS restricted to same-group boxes, in global score-descending
-    (stable) order. A Python loop of one step per object slot (512 at the
-    serving capacity), each a few small device operations with no sync."""
-    m = valid.shape[0]
-    iou = _pairwise_iou(boxes4)
-    same = group[:, None] == group[None, :]
-    inf = torch.full_like(scores, float("inf"))
-    sorted_idx = _stable_argsort(torch.where(valid, -scores, inf))
-    # in ranked order: s_k suppresses s_j when same group and IoU > thresh
-    sup = (same & (iou > thresh))[sorted_idx][:, sorted_idx]
-    v_sorted = valid[sorted_idx]
-    keep_sorted = torch.zeros(m, dtype=torch.bool, device=valid.device)
-    for k in range(m):
-        keep_sorted[k] = v_sorted[k] & ~(keep_sorted & sup[k]).any()
-    keep = torch.zeros_like(keep_sorted).scatter(0, sorted_idx, keep_sorted)
-    rank = torch.zeros(m, dtype=torch.int64, device=valid.device).scatter(
-        0, sorted_idx, torch.arange(m, device=valid.device))
-    return keep, rank
-
-
 def _labels_and_human(dist, frame, valid, frame_mask):
     """distribution[:, 1:] argmax + 2; per-frame human = best person score."""
     f_cap = frame_mask.shape[0]
@@ -143,16 +112,14 @@ def _rebuild_pairs_device(frame, valid, labels, human_idx, frame_has_box,
     return im_idx.to(torch.int32), pair_idx.to(torch.int32), slot_valid[:p_cap]
 
 
-def sgdet_postprocess_device(entry: Entry, distribution: torch.Tensor,
-                             mem_features: torch.Tensor):
+def clean_class_objects(entry: Entry, distribution: torch.Tensor,
+                        mem_features: torch.Tensor):
     """entry (detector labels in ``pred_labels``) + OSPU test distribution ->
-    (relabeled entry on an ``EXPAND * N`` object axis, gathered mem
-    features, overflow flag). Pair capacity = expanded object capacity."""
+    (fields, valid, frame, overflow): the object fields on the ``EXPAND * N``
+    axis after the clean_class rounds, their validity, frame and the
+    overflow flag."""
     n = distribution.shape[0]
     m = EXPAND * n
-    ncls = distribution.shape[1]
-    f_cap = entry.frame_mask.shape[0]
-    dev = distribution.device
 
     def grow(a):
         out = a.new_zeros((m,) + a.shape[1:])
@@ -172,20 +139,36 @@ def sgdet_postprocess_device(entry: Entry, distribution: torch.Tensor,
     valid = grow(entry.obj_mask)
     frame = fields["boxes"][:, 0].long()
 
-    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    overflow = torch.zeros((), dtype=torch.bool, device=distribution.device)
     for cls in CLEAN_CLASSES:
         fields, valid, frame, ovf = _clean_round(fields, valid, frame, cls)
         overflow = overflow | ovf
+    return fields, valid, frame, overflow
 
+
+def nms_problem(fields: dict, frame: torch.Tensor):
+    """The per-(frame, argmax class) NMS over the cleaned objects ->
+    (boxes4 [M, 4], scores [M], group [M]): :func:`grouped_nms`'s inputs
+    beside ``valid``."""
     dist = fields["distribution"]
-    argmax_cls = dist.argmax(1)
-    group = frame * ncls + argmax_cls
-    with record_function("vidsgg.grouped_nms"):
-        keep, rank = _grouped_nms(fields["boxes"][:, 1:], dist.max(1).values, group,
-                                  valid, NMS_THRESH)
+    group = frame * dist.shape[1] + dist.argmax(1)
+    return fields["boxes"][:, 1:], dist.max(1).values, group
 
-    key = torch.where(keep, (frame * ncls + argmax_cls) * m + rank,
-                      torch.full_like(rank, _BIG))
+
+def sgdet_postprocess_device(entry: Entry, distribution: torch.Tensor,
+                             mem_features: torch.Tensor):
+    """entry (detector labels in ``pred_labels``) + OSPU test distribution ->
+    (relabeled entry on an ``EXPAND * N`` object axis, gathered mem
+    features, overflow flag). Pair capacity = expanded object capacity."""
+    m = EXPAND * distribution.shape[0]
+    f_cap = entry.frame_mask.shape[0]
+    dev = distribution.device
+    fields, valid, frame, overflow = clean_class_objects(entry, distribution, mem_features)
+    boxes4, scores, group = nms_problem(fields, frame)
+    with record_function("vidsgg.grouped_nms"):
+        keep, rank = grouped_nms(boxes4, scores, group, valid, NMS_THRESH)
+
+    key = torch.where(keep, group * m + rank, torch.full_like(group, _BIG))
     order = _stable_argsort(key)
     new_valid = key[order] < _BIG
     for k in fields:

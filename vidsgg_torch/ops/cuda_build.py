@@ -39,15 +39,25 @@ def nvcc_path() -> str:
 
 class CudaKernel:
     """One kernel source: builds it once, loads it once, and counts the
-    launches its wrapper makes (``launches`` is a plain integer the caller
-    may reset)."""
+    launches its wrappers make: ``launches`` in all, ``launches_by`` per
+    call contract the wrapper names (plain counters; ``reset_counts``)."""
 
     def __init__(self, source: str, declare=None):
         self.source = CSRC_DIR / source
         self._declare_fns = declare
         self.launches = 0
+        self.launches_by: dict[str, int] = {}
         self.build_log = ""
         self._lib = None
+
+    def count(self, contract: str):
+        """One launch, made through ``contract``."""
+        self.launches += 1
+        self.launches_by[contract] = self.launches_by.get(contract, 0) + 1
+
+    def reset_counts(self):
+        self.launches = 0
+        self.launches_by = {}
 
     def library_path(self) -> Path:
         digest = hashlib.sha256(
