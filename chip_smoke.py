@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, TEMPURA sgdet serving, at full width on the
-CUDA card and fails (nonzero exit, no result line) on any fault:
+Drives the port's serving paths, TEMPURA sgdet (the main path, through
+the NMS kernel), predcls and sgcls, at full width on the CUDA card, scores
+what they serve with the port's evaluator, and fails (nonzero exit, no
+result line) on any fault:
 
 1. device: name, count, ``nvidia-smi`` name and power limit; TF32 off;
 2. build: compiles the NMS kernel (``vidsgg_torch/ops/csrc/nms.cu``) with
@@ -24,10 +26,26 @@ CUDA card and fails (nonzero exit, no result line) on any fault:
    TEMPURA d=1936) answers one warm-up and three timed 16x608x1008 videos
    through ``SgdetFrontend`` -> ``EvalPipeline("sgdet")``; every video must
    launch the kernel exactly 3 times, once through each call;
-5. reference: a small configuration served on the card (its grouped NMS
-   through the kernel's float64 instantiation) and on the CPU (plain
-   versions) in float64 must agree;
-6. a ``kernels`` JSON line (K1 and K2), then the result line.
+5. predcls and sgcls serving: GT-box videos (a stable synthetic
+   annotation, 16 frames x (1 person + 3 objects), AG's 480x270 frames
+   scaled by 1000/480 into the 608x1008 canvas) through the same
+   ResNet-101 base and head (``GtFrontend``: base, GT ROIAlign, head) ->
+   ``EvalPipeline("predcls" | "sgcls")`` with full-width TEMPURA (predcls
+   K=6 without tracking, sgcls K=4 with tracking), one warm-up and three
+   timed videos each; no NMS kernel launch may happen on these paths;
+6. scoring: every timed video of every mode through the port's R/mR
+   evaluator (``get_ag_evaluators``) against its synthetic annotation
+   (sgdet takes the GT modes' annotations as its frames' GT), and predcls
+   and sgcls through the temporal-consistency metric; every R@K and mR@K
+   must be finite and in [0, 1]. Random weights make these numbers
+   meaningless as accuracy: they show that the path runs;
+7. reference: small configurations served on the card (sgdet's grouped
+   NMS through the kernel's float64 instantiation) and on the CPU (plain
+   versions) in float64, in all three modes, must agree on every discrete
+   output and give identical evaluator grids; the predcls video (one
+   object per frame, so that the temporal metric finds intervals) must
+   give at least one interval;
+8. a ``kernels`` JSON line (K1 and K2), then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -43,13 +61,23 @@ import time
 import numpy as np
 import torch
 
+from vidsgg_torch.data import synthetic_video_annotation
+from vidsgg_torch.eval import (
+    evaluate_temporal_consistency,
+    get_ag_evaluators,
+    temporal_consistency_summary,
+)
 from vidsgg_torch.serving_setup import (
     FRAMES,
+    GT_IMAGE_WH,
+    GT_OBJS_PER_FRAME,
     H,
     W,
     build_models,
     build_pipeline,
+    build_relation,
     calibrate_random_heads,
+    gt_video,
     make_frames,
 )
 
@@ -57,6 +85,12 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12         # float32 outside the tensor cores
 IOU_FLOPS = 14                  # min/max x4, 4 add/sub, 2 max, mul, add, sub, div (+ compare)
 N_VIDEOS = 3
+GT_MODES = ("predcls", "sgcls")
+# seeds of the GT-mode videos (warm-up first); their annotations are also
+# the GT that sgdet's timed videos are scored against
+GT_SEEDS = [200 + i for i in range(N_VIDEOS + 1)]
+# the reference phase's two runs: the plain versions, then the card
+REFERENCE_DEVICES = ("cpu", "cuda")
 # NMS kernel launches of one served video, by call contract: the RPN
 # proposal NMS, the (frame, class) grid, the relation stage's grouped NMS
 PATH_LAUNCHES = {"presorted": 1, "ranked": 1, "grouped": 1}
@@ -431,7 +465,7 @@ def serve_phase(det, rel, frames_all, hw):
 
     front, pipe, state = build_pipeline(det, rel)
     video_size = (float(W), float(H))
-    rows = []
+    rows, preds = [], []
     for i, frames in enumerate(frames_all):
         if i == 1:
             torch.cuda.reset_peak_memory_stats()
@@ -456,15 +490,192 @@ def serve_phase(det, rel, frames_all, hw):
             rows.append(dict(ms=1e3 * (t2 - t0), detect_ms=1e3 * (t1 - t0),
                              relation_ms=1e3 * (t2 - t1), objects=n, pairs=p,
                              route=pipe.last_route, launches=launches, launches_by=by))
+            preds.append(pred)
     peak = torch.cuda.max_memory_allocated()
     log(f"[serve] peak memory allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
-    return rows, peak
+    return rows, peak, preds
+
+
+def serve_gt_phase(det, mode: str):
+    """predcls or sgcls serving at full width: one warm-up and N_VIDEOS
+    timed GT-box videos through ``GtFrontend`` -> ``EvalPipeline(mode)``.
+    The annotation and entry skeleton of a video are made before its timed
+    run, as a data loader would; the NMS kernel must not launch."""
+    from vidsgg_torch.ops.nms import NMS_KERNEL
+
+    t0 = time.perf_counter()
+    rel = build_relation(mode, det.device)
+    front, pipe, state = build_pipeline(det, rel, mode)
+    torch.cuda.synchronize()
+    log(f"[serve {mode}] TEMPURA {rel.cfg} built in {time.perf_counter() - t0:.1f} s")
+    video_size = (float(GT_IMAGE_WH[0]), float(GT_IMAGE_WH[1]))
+    rows, preds, anns = [], [], []
+    for i, seed in enumerate(GT_SEEDS):
+        ann, skeleton = gt_video(seed, mode, det.device)
+        frames = make_frames(seed, FRAMES, H, W, det.device)
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        NMS_KERNEL.reset_counts()
+        t0 = time.perf_counter()
+        entry, fmaps = front(frames, skeleton)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pred = pipe(state, entry, fmaps, gt_entry=entry)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = NMS_KERNEL.launches
+        n, p = check_pred(pred, video_size)
+        tag = "warm-up" if i == 0 else f"video {i}"
+        log(f"[serve {mode}] {tag}: {1e3 * (t2 - t0):.1f} ms (featurize "
+            f"{1e3 * (t1 - t0):.1f}: base + GT ROIAlign + head; relation "
+            f"{1e3 * (t2 - t1):.1f}), objects {n}, pairs {p}, route {pipe.last_route}, "
+            f"nms launches {launches}")
+        if launches != 0:
+            raise AssertionError(f"{mode} {tag}: {launches} NMS kernel launches, want 0")
+        if pipe.last_route != "device":
+            raise AssertionError(f"{mode} {tag}: took the {pipe.last_route} route")
+        if i > 0:
+            rows.append(dict(ms=1e3 * (t2 - t0), featurize_ms=1e3 * (t1 - t0),
+                             relation_ms=1e3 * (t2 - t1), objects=n, pairs=p,
+                             route=pipe.last_route, launches=launches))
+            preds.append(pred)
+            anns.append(ann)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[serve {mode}] peak memory allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
+    mean = {k: sum(r[k] for r in rows) / len(rows) for k in ("ms", "featurize_ms", "relation_ms")}
+    log(f"[serve {mode}] mean over timed videos: " + json.dumps(mean))
+    del front, pipe, state, rel
+    torch.cuda.empty_cache()
+    return dict(videos=rows, peak_memory_bytes=peak, mean=mean), preds, anns
+
+
+def grid(mode: str, anns, preds):
+    """The (with, semi, no) evaluators of ``mode`` over the videos ->
+    {constraint: {"R@K": ..., "mR@K": ...}} and the raw result dicts."""
+    out, raw = {}, {}
+    for ev in get_ag_evaluators(mode):
+        for ann, pred in zip(anns, preds):
+            ev.evaluate_scene_graph(ann, pred)
+        out[ev.constraint] = {
+            **{f"R@{k}": ev.recall_at(k) for k in ev.KS},
+            **{f"mR@{k}": ev.mean_recall_at(k) for k in ev.KS},
+        }
+        raw[ev.constraint] = ev.result_dict
+    return out, raw
+
+
+def temporal(mode: str, preds):
+    """The temporal-consistency scores of ``mode`` over the videos."""
+    s_all, c_all = [], []
+    for pred in preds:
+        s, c = evaluate_temporal_consistency(pred, mode)
+        s_all.extend(s.tolist())
+        c_all.extend(c.tolist())
+    return s_all, c_all
+
+
+def score_phase(mode: str, anns, preds):
+    """R/mR (and for predcls and sgcls the temporal summary) of the timed
+    videos; every R and mR must be finite and in [0, 1]."""
+    t0 = time.perf_counter()
+    scores, _ = grid(mode, anns, preds)
+    for constraint, vals in scores.items():
+        bad = {k: v for k, v in vals.items() if not (np.isfinite(v) and 0.0 <= v <= 1.0)}
+        if bad:
+            raise AssertionError(f"{mode} {constraint}: values outside [0, 1]: {bad}")
+        log(f"[score {mode}] {constraint}: " + " ".join(f"{k} {v:.4f}" for k, v in vals.items()))
+    out = dict(grid=scores)
+    if mode != "sgdet":
+        s, c = temporal(mode, preds)
+        out["temporal"] = temporal_consistency_summary(s, c)
+        note = ("" if s or c else " (no interval: the metric scans the frame-major pair "
+                "list and needs 7 consecutive pairs of one object class; these videos "
+                "have 3 objects of distinct classes a frame)")
+        log(f"[score {mode}] temporal consistency: {json.dumps(out['temporal'])}{note}")
+    log(f"[score {mode}] {len(preds)} videos scored in {time.perf_counter() - t0:.2f} s "
+        f"(random weights: the numbers show that the path runs, not accuracy)")
+    return out
+
+
+def agree(a: dict, b: dict, what: str) -> float:
+    """The card's pred dict ``a`` against the CPU's ``b``: every discrete
+    output equal, floats within 1e-5 x max(1, max|b|). Returns the largest
+    float difference."""
+    for key in ("labels", "im_idx", "pair_idx", "pred_labels"):
+        if not np.array_equal(a[key], b[key]):
+            raise AssertionError(f"{what}: card and CPU disagree on {key}")
+    worst = 0.0
+    for key in ("boxes", "pred_scores", "attention_distribution",
+                "spatial_distribution", "contacting_distribution"):
+        ref = np.abs(b[key]).max() if b[key].size else 0.0
+        err = float(np.abs(a[key] - b[key]).max()) if b[key].size else 0.0
+        if err > 1e-5 * max(1.0, ref):
+            raise AssertionError(f"{what}: card and CPU differ on {key} by {err}")
+        worst = max(worst, err)
+    if len(b["pair_idx"]) == 0:
+        raise AssertionError(f"{what}: reference video produced no pairs")
+    return worst
+
+
+def same_grids(mode: str, ann, a: dict, b: dict):
+    """The card's and the CPU's pred dicts give identical evaluator grids."""
+    ga, raw_a = grid(mode, [ann], [a])
+    gb, raw_b = grid(mode, [ann], [b])
+    if raw_a != raw_b or ga != gb:
+        raise AssertionError(f"{mode}: card and CPU evaluator grids differ")
+    return gb
+
+
+def reference_gt(mode: str, det):
+    """A small float64 GT-box video (8 frames of 160x256, one object a
+    frame, stable) served in ``mode`` on the card and on the CPU."""
+    from vidsgg_torch.data.entry import EntryCapacity
+    from vidsgg_torch.models import Tempura, TempuraConfig
+    from vidsgg_torch.ops.nms import NMS_KERNEL
+    from vidsgg_torch.serving_setup import GtFrontend
+    from vidsgg_torch.train import EvalPipeline, create_serving_state
+
+    f, h, w = 8, 160, 256
+    cap = EntryCapacity(f, 2 * f, f)
+    frames = make_frames(11, f, h, w, "cpu")
+    ann, skeleton = gt_video(31, mode, "cpu", cap=cap, num_frames=f, objs_per_frame=1,
+                             im_scale=w / GT_IMAGE_WH[0])
+    cfg = TempuraConfig.for_mode(mode, obj_head="linear", rel_head="gmm",
+                                 enc_layers=1, dec_layers=1, track_layers=1)
+    rel = Tempura(cfg, device="cpu", generator=torch.Generator().manual_seed(8)).double()
+    preds = []
+    for dev in REFERENCE_DEVICES:
+        d = det if dev == "cpu" else copy.deepcopy(det).to(dev)
+        r = rel if dev == "cpu" else copy.deepcopy(rel).to(dev)
+        entry, fmaps = GtFrontend(d)(frames.to(dev), skeleton.to(dev))
+        pipe = EvalPipeline(mode, cap, device=dev)
+        NMS_KERNEL.reset_counts()
+        preds.append(pipe(create_serving_state(r), entry, fmaps, gt_entry=entry))
+        if NMS_KERNEL.launches:
+            raise AssertionError(f"{mode} reference: {NMS_KERNEL.launches} NMS launches")
+    b, a = preds
+    worst = agree(a, b, f"{mode} reference")
+    scores = same_grids(mode, ann, a, b)
+    (sa, ca), (sb, cb) = (temporal(mode, [x]) for x in (a, b))
+    if len(sa) != len(sb) or len(ca) != len(cb):
+        raise AssertionError(f"{mode} reference: temporal interval counts differ")
+    tworst = float(np.abs(np.array(sa + ca) - np.array(sb + cb)).max(initial=0.0))
+    if tworst > 1e-5 * max(1.0, float(np.abs(np.array(sb + cb)).max(initial=0.0))):
+        raise AssertionError(f"{mode} reference: temporal scores differ by {tworst}")
+    if mode == "predcls" and not sb + cb:
+        raise AssertionError("predcls reference: the temporal metric found no interval")
+    log(f"[reference] small float64 {mode} video: card == CPU on every discrete output "
+        f"({len(b['pred_labels'])} objects, {len(b['pair_idx'])} pairs), identical "
+        f"grids (with R@20 {scores['with']['R@20']:.4f}), {len(sb)} + {len(cb)} temporal "
+        f"intervals (max difference {tworst:.3e}); max float difference {worst:.3e}")
 
 
 def reference_phase():
-    """A small configuration, float64, served on the card (the kernel) and
-    on the CPU (the plain versions) from the same weights: discrete outputs
-    must be equal, floats close."""
+    """Small configurations, float64, served on the card (the kernel) and
+    on the CPU (the plain versions) from the same weights in every mode:
+    discrete outputs must be equal, floats close, evaluator grids
+    identical."""
     from vidsgg_torch.data.entry import EntryCapacity
     from vidsgg_torch.detector import FasterRCNN, RPNConfig, SgdetCaps, SgdetFrontend
     from vidsgg_torch.models import Tempura, TempuraConfig
@@ -481,8 +692,8 @@ def reference_phase():
     cfg = TempuraConfig.for_mode("sgdet", obj_head="linear", rel_head="gmm",
                                  enc_layers=1, dec_layers=1, track_layers=1)
     rel = Tempura(cfg, device="cpu", generator=torch.Generator().manual_seed(8)).double()
-    preds = {}
-    for dev in ("cpu", "cuda"):
+    preds = []
+    for dev in REFERENCE_DEVICES:
         d = det if dev == "cpu" else copy.deepcopy(det).to(dev)
         r = rel if dev == "cpu" else copy.deepcopy(rel).to(dev)
         front = SgdetFrontend(d, SgdetCaps(dets_per_frame=dets), cap, device=dev)
@@ -490,28 +701,21 @@ def reference_phase():
                              video_size=(float(w), float(h)))
         pipe = EvalPipeline("sgdet", cap, union_pairs_per_frame=2 * dets, device=dev)
         NMS_KERNEL.reset_counts()
-        preds[dev] = pipe(create_serving_state(r), entry, fmaps)
+        preds.append(pipe(create_serving_state(r), entry, fmaps))
     # the card's run went through the kernel: the float64 grouped call too
     if NMS_KERNEL.launches_by != {"grouped": 1}:
         raise AssertionError(f"reference pipeline NMS launches {NMS_KERNEL.launches_by}")
-    a, b = preds["cuda"], preds["cpu"]
-    for key in ("labels", "im_idx", "pair_idx", "pred_labels"):
-        if not np.array_equal(a[key], b[key]):
-            raise AssertionError(f"card and CPU disagree on {key}")
-    worst = 0.0
-    for key in ("boxes", "pred_scores", "attention_distribution",
-                "spatial_distribution", "contacting_distribution"):
-        ref = np.abs(b[key]).max() if b[key].size else 0.0
-        err = float(np.abs(a[key] - b[key]).max()) if b[key].size else 0.0
-        if err > 1e-5 * max(1.0, ref):
-            raise AssertionError(f"card and CPU differ on {key} by {err}")
-        worst = max(worst, err)
-    if len(b["pair_idx"]) == 0:
-        raise AssertionError("reference video produced no pairs")
+    b, a = preds
+    worst = agree(a, b, "sgdet reference")
+    ann = synthetic_video_annotation(num_frames=f, objs_per_frame=GT_OBJS_PER_FRAME,
+                                     image_wh=(w, h), seed=10)
+    same_grids("sgdet", ann, a, b)
     log(f"[reference] small float64 video: card (kernel, float64 grouped NMS) == CPU "
         f"(plain) on every "
-        f"discrete output ({len(b['pred_labels'])} objects, {len(b['pair_idx'])} pairs); "
-        f"max float difference {worst:.3e}")
+        f"discrete output ({len(b['pred_labels'])} objects, {len(b['pair_idx'])} pairs), "
+        f"identical grids; max float difference {worst:.3e}")
+    for mode in GT_MODES:
+        reference_gt(mode, det)
 
 
 def main() -> int:
@@ -530,11 +734,21 @@ def main() -> int:
     videos = [make_frames(100 + i, FRAMES, H, W, "cuda") for i in range(N_VIDEOS + 1)]
 
     timings, errs = kernel_phase(det, rel, videos[0], hw)
-    rows, peak = serve_phase(det, rel, videos, hw)
-    reference_phase()
-
+    rows, peak, sgdet_preds = serve_phase(det, rel, videos, hw)
     per_video = {k: sum(r[k] for r in rows) / len(rows) for k in ("ms", "detect_ms", "relation_ms")}
     log("[serve] mean over timed videos: " + json.dumps(per_video))
+    del rel
+    torch.cuda.empty_cache()
+    gt_runs, scores = {}, {}
+    for mode in GT_MODES:
+        gt_runs[mode], preds, anns = serve_gt_phase(det, mode)
+        scores[mode] = score_phase(mode, anns, preds)
+    # sgdet's frames are scored against the GT modes' timed annotations
+    sgdet_anns = [synthetic_video_annotation(
+        num_frames=FRAMES, objs_per_frame=GT_OBJS_PER_FRAME, image_wh=GT_IMAGE_WH,
+        stable=True, seed=seed) for seed in GT_SEEDS[1:]]
+    scores["sgdet"] = score_phase("sgdet", sgdet_anns, sgdet_preds)
+    reference_phase()
     launches = sum(r["launches"] for r in rows)
     ranked_launches = sum(r["launches_by"].get("ranked", 0) for r in rows)
 
@@ -567,6 +781,9 @@ def main() -> int:
     ]
     log("[serve] " + json.dumps({"videos": rows, "peak_memory_bytes": peak,
                                  "frames": [FRAMES, H, W]}))
+    for mode in GT_MODES:
+        log(f"[serve {mode}] " + json.dumps(gt_runs[mode]))
+    log("[score] " + json.dumps(scores))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),
           flush=True)

@@ -2,6 +2,9 @@
 PyTorch version on the same CUDA tensors, through all three of its call
 contracts (presorted with max_keep, ranked inside the call, grouped with
 ranks). Tolerance: exact (keep masks are booleans, ranks integers).
+Then the predcls and sgcls paths: a small video served in float32 on the
+card against float64 on the CPU (discrete outputs exact), and the sgcls
+relabel on the card against its CPU run (bit for bit).
 Skipped where there is no CUDA card.
 
 This file imports neither JAX nor ``vidsgg``, so it also runs on a machine
@@ -118,3 +121,98 @@ def test_kernel_refuses_what_it_cannot_take(cuda_device):
     tnms.nms_sorted_cuda(b, v, 0.5, max_keep=100)   # with max_keep it fits
     with pytest.raises(TypeError):
         tnms.nms_sorted_cuda(b[:, :8].half(), v[:, :8], 0.5)
+
+
+# ---------------------------------------------------------------------------
+# predcls and sgcls serving on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def gt_models():
+    """A shrunk detector and one-layer TEMPURA per GT mode, float64 on the
+    CPU (the reference the card's float32 run is held against); also loads
+    cuDNN and cuBLAS on the card, so that their first-use cost falls here
+    and not in a test."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.nn.functional.conv2d(torch.zeros((1, 3, 8, 8), device="cuda"),
+                               torch.zeros((4, 3, 3, 3), device="cuda"))
+    torch.zeros((8, 8), device="cuda") @ torch.zeros((8, 8), device="cuda")
+    from vidsgg_torch.detector import FasterRCNN, RPNConfig
+    from vidsgg_torch.models import Tempura, TempuraConfig
+
+    det = FasterRCNN(rpn_cfg=RPNConfig(pre_nms_top_n=64, post_nms_top_n=8),
+                     base_blocks=(1, 1, 1), head_blocks=1, device="cpu",
+                     generator=torch.Generator().manual_seed(7)).double()
+    rels = {}
+    for mode in ("predcls", "sgcls"):
+        cfg = TempuraConfig.for_mode(mode, obj_head="linear", rel_head="gmm", enc_layers=1,
+                                     dec_layers=1, track_layers=1)
+        rels[mode] = Tempura(cfg, device="cpu",
+                             generator=torch.Generator().manual_seed(8)).double()
+    return det, rels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["predcls", "sgcls"])
+def test_gt_video_card_float32_matches_cpu_float64(cuda_device, gt_models, mode):
+    """A small GT-box video served in float32 on the card agrees with the
+    float64 CPU run: discrete outputs exact, floats at atol
+    1e-4 x max(1, max|ref|) (float32 against float64)."""
+    import copy
+
+    from vidsgg_torch.data import EntryCapacity
+    from vidsgg_torch.serving_setup import GtFrontend, gt_video, make_frames
+    from vidsgg_torch.train import EvalPipeline, create_serving_state
+
+    det, rels = gt_models
+    f, h, w = 6, 160, 256
+    cap = EntryCapacity(f, 4 * f, 3 * f)
+    frames = make_frames(3, f, h, w, "cpu")
+    _, skeleton = gt_video(5, mode, "cpu", cap=cap, num_frames=f, im_scale=w / 480)
+    preds = []
+    card = (copy.deepcopy(det).to(cuda_device, torch.float32),
+            copy.deepcopy(rels[mode]).to(cuda_device, torch.float32))
+    for dev, (d, r) in (("cpu", (det, rels[mode])), (cuda_device, card)):
+        entry, fmaps = GtFrontend(d)(frames.to(dev), skeleton.to(dev))
+        pipe = EvalPipeline(mode, cap, device=dev)
+        preds.append(pipe(create_serving_state(r), entry, fmaps, gt_entry=entry))
+        assert pipe.last_route == "device"
+    want, got = preds
+    assert len(want["pair_idx"]) > 0
+    for k in ("labels", "im_idx", "pair_idx", "pred_labels"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for k in ("spatial_gt", "contacting_gt"):
+        assert got[k] == want[k]
+    for k in ("boxes", "pred_scores", "attention_distribution", "spatial_distribution",
+              "contacting_distribution"):
+        scale = max(1.0, float(np.abs(want[k]).max()))
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-4 * scale, err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sgcls_postprocess_device_card_equals_cpu(cuda_device, seed):
+    """The sgcls relabel on the card equals its CPU run bit for bit, on a
+    distribution with tied label counts and tied duplicate scores."""
+    import dataclasses
+
+    from vidsgg_torch.data import EntryCapacity, build_gt_entry, synthetic_video_annotation
+    from vidsgg_torch.models.postprocess_device import sgcls_postprocess_device
+
+    ann = synthetic_video_annotation(num_frames=5, objs_per_frame=4, seed=seed)
+    entry = build_gt_entry(ann, EntryCapacity(8, 32, 24), device="cpu")
+    rng = np.random.RandomState(seed)
+    dist = (np.round(rng.rand(32, 36) * 4) / 40).astype(np.float32)   # ties everywhere
+    dist[:, 0] = 0.01
+    dist[::5, 0] = 0.9
+    dist[[1, 2, 3, 4], [7, 7, 10, 10]] = 0.8        # two labels twice, tied scores
+    dist[[6, 7, 8], 20] = 0.7
+    dist *= entry.obj_mask.numpy()[:, None]
+    d = torch.from_numpy(dist)
+    want = sgcls_postprocess_device(entry, d)
+    got = sgcls_postprocess_device(entry.to(cuda_device), d.to(cuda_device))
+    for f in dataclasses.fields(want):
+        g, w = getattr(got, f.name).cpu(), getattr(want, f.name)
+        assert g.dtype == w.dtype and torch.equal(g, w), f.name

@@ -1,9 +1,14 @@
 from vidsgg_torch.detector.faster_rcnn import FasterRCNN
-from vidsgg_torch.detector.featurize import pair_union_features, pair_union_features_grouped
+from vidsgg_torch.detector.featurize import (
+    featurize_gt_entry,
+    featurize_pair_entry,
+    pair_union_features,
+    pair_union_features_grouped,
+)
 from vidsgg_torch.detector.rpn import RPNConfig
 from vidsgg_torch.detector.sgdet import SgdetCaps, SgdetFrontend
 
 __all__ = [
-    "FasterRCNN", "RPNConfig", "SgdetCaps", "SgdetFrontend",
-    "pair_union_features", "pair_union_features_grouped",
+    "FasterRCNN", "RPNConfig", "SgdetCaps", "SgdetFrontend", "featurize_gt_entry",
+    "featurize_pair_entry", "pair_union_features", "pair_union_features_grouped",
 ]

@@ -1,11 +1,16 @@
-"""Pair union features (counterpart of ``vidsgg/detector/featurize.py``).
+"""Entry featurization (counterpart of ``vidsgg/detector/featurize.py``).
 
 Per-pair union boxes (min of top-lefts, max of bottom-rights), ROIAlign of
 the unions over the base feature maps to [P, 7, 7, 1024], and the 2x27x27
-pair spatial masks centred by -0.5. Masked rows are zero.
+pair spatial masks centred by -0.5; for a GT-box entry (predcls, sgcls)
+also the object features: the boxes scaled to network resolution, pooled
+7x7 at 1/16 and passed through the R-CNN head. Masked rows are zero.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Callable
 
 import torch
 
@@ -78,3 +83,30 @@ def pair_union_features_grouped(entry: Entry, fmaps: torch.Tensor,
     union_feat = pooled[torch.clamp(frame_ext, max=f - 1), slot]
     union_feat = union_feat * pm[:, None, None, None]
     return union_feat, union_boxes, _spatial_masks(sub, obj, pm), overflow
+
+
+def featurize_pair_entry(entry: Entry, fmaps: torch.Tensor) -> Entry:
+    """Fill union_feat / spatial_masks of an entry whose boxes, pairs and
+    per-object features are already set."""
+    union_feat, _, spatial_masks = pair_union_features(entry, fmaps)
+    return dataclasses.replace(entry, union_feat=union_feat, spatial_masks=spatial_masks)
+
+
+def featurize_gt_entry(entry: Entry, fmaps: torch.Tensor,
+                       head_fn: Callable[[torch.Tensor], torch.Tensor]) -> Entry:
+    """Fill features / union_feat / spatial_masks of a GT-box entry.
+
+    Args:
+      entry: skeleton from :func:`vidsgg_torch.data.build_gt_entry`, boxes in
+        original-image scale, ``im_scale`` set by the caller.
+      fmaps: [F, H, W, 1024] base feature maps (NHWC) at network resolution.
+      head_fn: maps [N, 7, 7, 1024] pooled features -> [N, 2048] (the
+        detector's ``head_to_tail``).
+    """
+    scaled = torch.cat([entry.boxes[:, :1], entry.boxes[:, 1:] * entry.im_scale], dim=1)
+    pooled = roi_align(fmaps, scaled, out_size=C.ROI_ALIGN_OUT,
+                       spatial_scale=C.ROI_ALIGN_SCALE)
+    feats = head_fn(pooled) * entry.obj_mask[:, None]
+    union_feat, _, spatial_masks = pair_union_features(entry, fmaps)
+    return dataclasses.replace(entry, features=feats, union_feat=union_feat,
+                               spatial_masks=spatial_masks)

@@ -1,16 +1,26 @@
-"""On-device sgdet test-time postprocess (counterpart of the sgdet part of
+"""On-device sgcls / sgdet test-time postprocess (counterpart of
 ``vidsgg/models/postprocess_device.py``).
 
-``clean_class`` duplication for classes {5, 8, 17} on a statically expanded
-object axis, per-(frame, argmax-class) greedy NMS at IoU 0.6, the
-reference's (frame, class)-lexsorted re-ordering, label assignment + human
-selection, pair rebuild. Masked ops on padded buffers; no host sync.
+* sgcls: label assignment, per-frame human selection, one-round
+  modal-class duplicate suppression, pair rebuild;
+* sgdet: ``clean_class`` duplication for classes {5, 8, 17} on a
+  statically expanded object axis, per-(frame, argmax-class) greedy NMS at
+  IoU 0.6, the reference's (frame, class)-lexsorted re-ordering, label
+  assignment + human selection, pair rebuild.
 
-Exactness notes (as in ``vidsgg``): clean_class growth is bounded by the
-``expand`` factor and an overflow flag reports truncation; the post-NMS
-lexsort is stable over the NMS-keep order, i.e. score-descending within
-each (frame, class) group, reproduced by keying on the global score rank.
-Every ``argsort(stable=True)`` is a stable ``torch.sort``.
+Masked ops on padded buffers; no host sync.
+
+Exactness notes (as in ``vidsgg``): the modal class is the smallest of the
+most frequent labels (``torch.mode``'s tie-break: ``argmax`` takes the
+first maximum); among equally scored modal duplicates the *last* index is
+kept (an argmax over the flipped row); a scatter that ``vidsgg`` drops at
+index ``n`` goes to an ``n + 1`` buffer that is sliced, since an
+out-of-range index is a device assert on CUDA. clean_class growth is
+bounded by the ``expand`` factor and an overflow flag reports truncation;
+the post-NMS lexsort is stable over the NMS-keep order, i.e.
+score-descending within each (frame, class) group, reproduced by keying on
+the global score rank. Every ``argsort(stable=True)`` is a stable
+``torch.sort``.
 """
 
 from __future__ import annotations
@@ -93,7 +103,7 @@ def _labels_and_human(dist, frame, valid, frame_mask):
     is_human = is_human[:n]
     pred_labels = torch.where(is_human, 1, pred_labels)
     pred_scores = torch.where(is_human, dist[:, 0], pred_scores)
-    return pred_labels, pred_scores, human_idx, frame_has_box
+    return pred_labels, pred_scores, human_idx, in_frame, frame_has_box
 
 
 def _rebuild_pairs_device(frame, valid, labels, human_idx, frame_has_box,
@@ -110,6 +120,56 @@ def _rebuild_pairs_device(frame, valid, labels, human_idx, frame_has_box,
         dim=1,
     )[:p_cap]
     return im_idx.to(torch.int32), pair_idx.to(torch.int32), slot_valid[:p_cap]
+
+
+def sgcls_postprocess_device(entry: Entry, distribution: torch.Tensor) -> Entry:
+    """entry + OSPU test distribution [N, C-1] -> relabeled entry with
+    rebuilt pairs (same object axis; pair axis capacity reused)."""
+    n, ncm1 = distribution.shape
+    f_cap = entry.frame_mask.shape[0]
+    p_cap = entry.pair_mask.shape[0]
+    dev = distribution.device
+    valid = entry.obj_mask
+    frame = entry.boxes[:, 0].long()
+    frame_c = torch.clamp(frame, 0, f_cap - 1)
+
+    dist = distribution * valid[:, None]
+    pred_labels, pred_scores, human_idx, in_frame, frame_has_box = _labels_and_human(
+        dist, frame, valid, entry.frame_mask)
+
+    # one round of modal-class duplicate suppression per frame
+    onehot = torch.nn.functional.one_hot(pred_labels, ncm1 + 2) * valid[:, None]
+    counts = in_frame.to(torch.float32) @ onehot.to(torch.float32)   # [F, labels]
+    modal = counts.argmax(1)           # first maximum = the smallest tied label
+    modal_of_box = modal[frame_c]
+    is_dup = valid & (pred_labels == modal_of_box) & frame_has_box[frame_c]
+    modal_col = torch.clamp(modal_of_box - 1, 0, ncm1 - 1)
+    dup_score = torch.gather(dist, 1, modal_col[:, None])[:, 0]
+    neg = torch.full((), _NEG, dtype=dist.dtype, device=dev)
+    dup_scores_fr = torch.where(in_frame & is_dup[None, :], dup_score[None, :], neg)
+    keep_idx = n - 1 - dup_scores_fr.flip(1).argmax(1)   # last index among ties
+    has_dup = frame_has_box & (dup_scores_fr.max(1).values > _NEG / 2)
+    keep_mask = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+    keep_mask[torch.where(has_dup, keep_idx, n)] = True
+    demote = is_dup & ~keep_mask[:n]
+    col = torch.arange(ncm1, device=dev)
+    dist2 = torch.where(demote[:, None] & (col[None, :] == modal_col[:, None]),
+                        torch.zeros((), dtype=dist.dtype, device=dev), dist)
+    new_labels = torch.where(demote, dist2.argmax(1) + 1, pred_labels)
+    new_scores = torch.where(demote, dist2.max(1).values, pred_scores)
+
+    im_idx, pair_idx, pair_mask = _rebuild_pairs_device(
+        frame, valid, new_labels, human_idx, frame_has_box, f_cap, p_cap)
+    return dataclasses.replace(
+        entry,
+        distribution=dist2,
+        pred_labels=new_labels.to(torch.int32),
+        scores=new_scores,
+        im_idx=im_idx,
+        pair_idx=pair_idx,
+        pair_mask=pair_mask,
+        human_idx=human_idx.to(torch.int32),
+    )
 
 
 def clean_class_objects(entry: Entry, distribution: torch.Tensor,
@@ -178,7 +238,7 @@ def sgdet_postprocess_device(entry: Entry, distribution: torch.Tensor,
     frame = fields["boxes"][:, 0].long() * valid
 
     dist = fields["distribution"]
-    pred_labels, pred_scores, human_idx, frame_has_box = _labels_and_human(
+    pred_labels, pred_scores, human_idx, _, frame_has_box = _labels_and_human(
         dist, frame, valid, entry.frame_mask)
     im_idx, pair_idx, pair_mask = _rebuild_pairs_device(
         frame, valid, pred_labels, human_idx, frame_has_box, f_cap, m)

@@ -1,8 +1,11 @@
 """TEMPURA: OSPU + pair features + STTran + GMM predicate heads, test phase.
 
 Counterpart of ``vidsgg/models/tempura.py``. The module exposes the two
-stages between which sgdet interposes its relabel/NMS/pair rebuild:
-:meth:`Tempura.classify_objects` (OSPU) and :meth:`Tempura.relation_forward`.
+stages between which sgcls and sgdet interpose their relabel (and NMS)
+and pair rebuild: :meth:`Tempura.classify_objects` (OSPU) and
+:meth:`Tempura.relation_forward`; :meth:`Tempura.forward` runs both
+back to back, which is the whole predcls test step (predcls has no object
+classifier: the GT labels pass through).
 
 Pair features: subj_fc(2048->512) ⊕ obj_fc(2048->512) ⊕ vr (1x1 conv over
 the union ROI features + a conv stack over the 2x27x27 spatial masks,
@@ -185,3 +188,14 @@ class Tempura(PairFeatures):
             out["contacting_distribution"] = torch.sigmoid(
                 self.c_rel_compress(global_output)) * pm
         return out
+
+    def forward(self, entry: Entry, rel_memory=None, obj_memory=None,
+                mem_active=False) -> dict:
+        """The full test-phase forward: OSPU (none in predcls), then the
+        relation stage on the entry as it is. The predcls test step; sgcls
+        and sgdet tests relabel between the two stages instead."""
+        aux = ({} if self.cfg.mode == "predcls"
+               else self.classify_objects(entry, obj_memory, mem_active))
+        out = self.relation_forward(entry, aux.get("object_mem_features"),
+                                    rel_memory, mem_active)
+        return {**aux, **out}

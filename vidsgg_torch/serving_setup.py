@@ -1,18 +1,32 @@
-"""The sgdet serving configuration the port is measured at on the card.
+"""The serving configurations the port is measured at on the card.
 
-``chip_smoke.py`` and ``scripts/profile_torch_sgdet.py`` both build it from
-here: the default ``tempura_test --mode sgdet`` models at full width with
-seeded random weights (no checkpoint ships), 16-frame 608x1008 videos made
-from a seed, and the detector's output layers rescaled to trained-like
-spreads so that proposals and detections fill their slots.
+``chip_smoke.py`` and ``scripts/profile_torch_sgdet.py`` build them from
+here: the default ``tempura_test`` models at full width with seeded random
+weights (no checkpoint ships), 16-frame 608x1008 videos made from a seed.
+
+* sgdet: the detector's output layers rescaled to trained-like spreads so
+  that proposals and detections fill their slots.
+* predcls and sgcls: GT-box videos following ``vidsgg``'s synthetic source
+  (``vidsgg/cli/data_source.py:make_synthetic_source``) with the detector's
+  base and head in place of its random stand-ins: a stable synthetic
+  annotation of 16 frames x (1 person + 3 objects) at AG's 480x270 frame
+  size, scaled by ``1000 / 480`` (AG's min-side-600 / max-side-1000 resize
+  gives 1000x562, inside the 608x1008 canvas), ``EntryCapacity(16, 64,
+  48)`` (the first of ``vidsgg``'s default buckets, which such a video
+  fills exactly); sgcls also gets the detector-style class distribution of
+  that source (seeded logits, +4 on the GT class, softmax, masked).
 """
 
 from __future__ import annotations
 
-import torch
+import dataclasses
 
-from vidsgg_torch.data.entry import EntryCapacity
-from vidsgg_torch.detector import FasterRCNN, SgdetCaps, SgdetFrontend
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from vidsgg_torch.data import EntryCapacity, build_gt_entry, synthetic_video_annotation
+from vidsgg_torch.detector import FasterRCNN, SgdetCaps, SgdetFrontend, featurize_gt_entry
 from vidsgg_torch.models import Tempura, TempuraConfig
 from vidsgg_torch.train import EvalPipeline, create_serving_state
 
@@ -24,6 +38,13 @@ DETS = 16
 # N(0, 3) (flatter ones leave every class under the 0.1 score threshold)
 DELTA_STD = 0.2
 LOGIT_STD = 3.0
+
+# the GT-box videos of predcls and sgcls
+GT_OBJS_PER_FRAME = 3
+GT_IMAGE_WH = (480, 270)
+GT_IM_SCALE = 1000.0 / 480.0
+GT_CAP = EntryCapacity(FRAMES, FRAMES * (1 + GT_OBJS_PER_FRAME), 48)
+GT_LABEL_BIAS = 4.0
 
 
 def make_frames(seed: int, frames: int, h: int, w: int, device) -> torch.Tensor:
@@ -51,21 +72,76 @@ def calibrate_random_heads(det: FasterRCNN, frames, hw):
     det.RCNN_cls_score.weight.mul_(LOGIT_STD / spread(logits))
 
 
-def build_models(device=None):
-    """Full-width FasterRCNN (ResNet-101, RPN 6000/100@0.7) and TEMPURA
-    (linear object head, GMM relation heads) from seeds 0 and 1, the
-    detector's heads calibrated on two seeded frames."""
+def build_relation(mode: str, device=None) -> Tempura:
+    """Full-width TEMPURA for ``mode`` (linear object head, GMM relation
+    heads; predcls K=6 without an object classifier, sgcls/sgdet K=4 with
+    tracking) from seed 1."""
+    cfg = TempuraConfig.for_mode(mode, obj_head="linear", rel_head="gmm")
+    return Tempura(cfg, device=device, generator=torch.Generator().manual_seed(1))
+
+
+def build_models(device=None, mode: str = "sgdet"):
+    """Full-width FasterRCNN (ResNet-101, RPN 6000/100@0.7) from seed 0 and
+    :func:`build_relation`'s TEMPURA. For sgdet the detector's heads are
+    calibrated on two seeded frames; predcls and sgcls use only its base
+    and head, which the calibration leaves as they are."""
     det = FasterRCNN(device=device, generator=torch.Generator().manual_seed(0))
-    cfg = TempuraConfig.for_mode("sgdet", obj_head="linear", rel_head="gmm")
-    rel = Tempura(cfg, device=device, generator=torch.Generator().manual_seed(1))
-    calibrate_random_heads(det, make_frames(99, 2, H, W, det.device), (float(H), float(W)))
+    rel = build_relation(mode, device)
+    if mode == "sgdet":
+        calibrate_random_heads(det, make_frames(99, 2, H, W, det.device),
+                               (float(H), float(W)))
     return det, rel
 
 
-def build_pipeline(det: FasterRCNN, rel: Tempura):
-    """(SgdetFrontend, EvalPipeline("sgdet"), ServingState) at
-    ``EntryCapacity(16, 256, 48)`` and 32 union pairs per frame."""
-    cap = EntryCapacity(FRAMES, FRAMES * DETS, 48)
-    front = SgdetFrontend(det, SgdetCaps(dets_per_frame=DETS), cap, device=det.device)
-    pipe = EvalPipeline("sgdet", cap, union_pairs_per_frame=2 * DETS, device=det.device)
+def build_pipeline(det: FasterRCNN, rel: Tempura, mode: str = "sgdet"):
+    """(frontend, EvalPipeline(mode), ServingState). sgdet: an
+    ``SgdetFrontend`` at ``EntryCapacity(16, 256, 48)`` and 32 union pairs
+    per frame; predcls and sgcls: a :class:`GtFrontend` at ``GT_CAP``."""
+    if mode == "sgdet":
+        cap = EntryCapacity(FRAMES, FRAMES * DETS, 48)
+        front = SgdetFrontend(det, SgdetCaps(dets_per_frame=DETS), cap, device=det.device)
+        pipe = EvalPipeline("sgdet", cap, union_pairs_per_frame=2 * DETS, device=det.device)
+    else:
+        front = GtFrontend(det)
+        pipe = EvalPipeline(mode, GT_CAP, device=det.device)
     return front, pipe, create_serving_state(rel)
+
+
+def gt_video(seed: int, mode: str, device, cap: EntryCapacity = GT_CAP,
+             num_frames: int = FRAMES, objs_per_frame: int = GT_OBJS_PER_FRAME,
+             im_scale: float = GT_IM_SCALE):
+    """(annotation, GT-box entry skeleton) of one synthetic video: stable
+    layout, boxes in 480x270 image scale, ``im_scale`` 1000/480 by default;
+    for sgcls also the detector-style class distribution. Host work, made
+    before a timed run like a data loader's."""
+    ann = synthetic_video_annotation(num_frames=num_frames, objs_per_frame=objs_per_frame,
+                                     image_wh=GT_IMAGE_WH, stable=True, seed=seed)
+    entry = build_gt_entry(ann, cap, device=device)
+    entry = dataclasses.replace(
+        entry, im_scale=torch.tensor(im_scale, dtype=torch.float32, device=entry.device))
+    if mode == "sgcls":
+        rng = np.random.RandomState(seed)
+        logits = rng.randn(cap.max_objs, 36).astype(np.float32)
+        lbl = entry.labels.cpu().numpy()
+        logits[np.arange(cap.max_objs), np.clip(lbl - 1, 0, 35)] += GT_LABEL_BIAS
+        dist = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+        dist *= entry.obj_mask.cpu().numpy()[:, None]
+        entry = dataclasses.replace(entry, distribution=torch.from_numpy(dist).to(entry.device))
+    return ann, entry
+
+
+class GtFrontend:
+    """Frames + GT-box entry skeleton -> featurized Entry and base feature
+    maps: ResNet base, GT ROIAlign 7x7 at 1/16 and the R-CNN head."""
+
+    def __init__(self, model: FasterRCNN):
+        self.model = model
+
+    @torch.inference_mode()
+    def __call__(self, frames, entry):
+        """frames [F, H, W, 3] (network scale) -> (Entry, fmaps [F, h, w, 1024])."""
+        with record_function("vidsgg.backbone"):
+            fmaps = self.model.base_features(frames).permute(0, 2, 3, 1)
+        with record_function("vidsgg.featurize_gt"):
+            entry = featurize_gt_entry(entry, fmaps, self.model.head_to_tail)
+        return entry, fmaps

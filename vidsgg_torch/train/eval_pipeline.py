@@ -1,15 +1,20 @@
-"""sgdet evaluation pipeline (counterpart of the sgdet branch of
+"""Mode-aware evaluation pipelines (counterpart of
 ``vidsgg/train/eval_pipeline.py``).
 
-The fused stage: OSPU classify -> on-device clean_class + grouped NMS +
-relabel + pair rebuild on the expanded object axis -> union refeaturize ->
-relation forward. When it reports overflow (clean_class growth past the
-expanded axis, or a frame with more pairs than ``union_pairs_per_frame``),
-the exact host path runs instead: OSPU classify -> NumPy postprocess ->
-repacked Entry -> union ROIAlign -> relation forward. The result is an
-evaluator-ready NumPy pred dict.
+* predcls: the whole model forward on the GT-box entry (no object
+  classifier: the GT labels pass through).
+* sgcls (fused): OSPU classify -> on-device relabel, modal-class dedup and
+  pair rebuild -> union refeaturize -> relation forward.
+* sgdet (fused): OSPU classify -> on-device clean_class + grouped NMS +
+  relabel + pair rebuild on the expanded object axis -> union refeaturize
+  -> relation forward. When it reports overflow (clean_class growth past
+  the expanded axis, or a frame with more pairs than
+  ``union_pairs_per_frame``), the exact host path runs instead.
+* the host path (sgcls with ``device_postprocess=False``, sgdet on
+  overflow): OSPU classify -> NumPy postprocess -> repacked Entry -> union
+  ROIAlign -> relation forward.
 
-predcls and sgcls come with a later slice.
+The result is an evaluator-ready NumPy pred dict.
 """
 
 from __future__ import annotations
@@ -21,15 +26,26 @@ import torch
 from torch.profiler import record_function
 
 from vidsgg_torch.data.entry import Entry, EntryCapacity
-from vidsgg_torch.detector.featurize import (
-    pair_union_features,
-    pair_union_features_grouped,
-)
+from vidsgg_torch.detector.featurize import featurize_pair_entry, pair_union_features_grouped
 from vidsgg_torch.device import resolve_device
 from vidsgg_torch.eval.adapter import to_eval_pred
-from vidsgg_torch.models.postprocess import ObjectsView, sgdet_postprocess
-from vidsgg_torch.models.postprocess_device import sgdet_postprocess_device
+from vidsgg_torch.models.postprocess import ObjectsView, sgcls_postprocess, sgdet_postprocess
+from vidsgg_torch.models.postprocess_device import (
+    sgcls_postprocess_device,
+    sgdet_postprocess_device,
+)
 from vidsgg_torch.train.state import ServingState
+
+
+MODES = ("predcls", "sgcls", "sgdet")
+
+
+def _predcls_stage(state: ServingState, entry: Entry):
+    """The whole predcls test forward (GT boxes + labels -> predicate
+    distributions)."""
+    with record_function("vidsgg.relation_forward"):
+        return state.model(entry, rel_memory=state.rel_memory,
+                           obj_memory=state.obj_memory, mem_active=state.mem_active)
 
 
 def _classify_stage(state: ServingState, entry: Entry):
@@ -38,12 +54,26 @@ def _classify_stage(state: ServingState, entry: Entry):
 
 
 def _relation_stage(state: ServingState, entry: Entry, obj_mem_features, fmaps):
-    union_feat, _, spatial_masks = pair_union_features(entry, fmaps)
-    entry = dataclasses.replace(entry, union_feat=union_feat, spatial_masks=spatial_masks)
+    entry = featurize_pair_entry(entry, fmaps)
     out = state.model.relation_forward(
         entry, obj_mem_features, rel_memory=state.rel_memory,
         mem_active=state.mem_active)
     return entry, out
+
+
+def _sgcls_fused(state: ServingState, entry: Entry, fmaps):
+    """The whole sgcls test step on the device -> (entry2, out)."""
+    with record_function("vidsgg.classify"):
+        aux = _classify_stage(state, entry)
+    with record_function("vidsgg.postprocess"):
+        entry2 = sgcls_postprocess_device(entry, aux["distribution"])
+    with record_function("vidsgg.union_features"):
+        entry2 = featurize_pair_entry(entry2, fmaps)
+    with record_function("vidsgg.relation_forward"):
+        out = state.model.relation_forward(
+            entry2, aux["object_mem_features"], rel_memory=state.rel_memory,
+            mem_active=state.mem_active)
+    return entry2, out
 
 
 def _sgdet_fused(state: ServingState, entry: Entry, fmaps, union_ppf: int):
@@ -112,33 +142,52 @@ def _rebuild_entry(entry: Entry, o: ObjectsView, human_idx, im_idx, pairs,
 class EvalPipeline:
     mode: str
     cap: EntryCapacity
-    # per-frame pair bound of the grouped union pooling; the sgdet postprocess
-    # doubles the object axis, so 2 * dets_per_frame covers every frame
+    # sgcls and sgdet relabel on the device; False takes the host path
+    device_postprocess: bool = True
+    # per-frame pair bound of sgdet's grouped union pooling; the sgdet
+    # postprocess doubles the object axis, so 2 * dets_per_frame covers
+    # every frame
     union_pairs_per_frame: int = 32
     device: object = None
 
     def __post_init__(self):
         # "device" or "host": which route the last call took
         self.last_route = None
-        if self.mode != "sgdet":
-            raise NotImplementedError(
-                f"EvalPipeline: mode {self.mode!r} is not ported yet (sgdet only)")
+        if self.mode not in MODES:
+            raise NotImplementedError(f"EvalPipeline: mode {self.mode!r} is not ported")
         self.device = resolve_device(self.device)
 
     @torch.inference_mode()
     def __call__(self, state: ServingState, entry: Entry, fmaps, gt_entry=None):
-        """One video: detector Entry + base feature maps [F, H, W, 1024] ->
-        evaluator-ready pred dict (NumPy)."""
+        """One video -> evaluator-ready pred dict (NumPy).
+
+        Args:
+          state: the serving state.
+          entry: featurized entry (GT boxes for predcls/sgcls; detector
+            output for sgdet).
+          fmaps: [F, H, W, 1024] base feature maps for union re-pooling
+            (unused in predcls).
+          gt_entry: the GT entry whose predicate lists the pred dict carries
+            in the original GT pair order (sgcls, sgdet).
+        """
         entry = entry.to(self.device)
-        fmaps = torch.as_tensor(fmaps, device=self.device)
-        entry2, out, overflow = _sgdet_fused(state, entry, fmaps,
-                                             self.union_pairs_per_frame)
-        if not bool(overflow):
+        if self.mode == "predcls":
             self.last_route = "device"
-            return self._attach_gt(to_eval_pred(entry2, out, self.mode), gt_entry)
+            return to_eval_pred(entry, _predcls_stage(state, entry), "predcls")
+        fmaps = torch.as_tensor(fmaps, device=self.device)
+        if self.device_postprocess:
+            if self.mode == "sgcls":
+                entry2, out = _sgcls_fused(state, entry, fmaps)
+                overflow = False
+            else:
+                entry2, out, overflow = _sgdet_fused(state, entry, fmaps,
+                                                     self.union_pairs_per_frame)
+            if not bool(overflow):
+                self.last_route = "device"
+                return self._attach_gt(to_eval_pred(entry2, out, self.mode), gt_entry)
         self.last_route = "host"
 
-        # rare truncation: the exact host path
+        # the exact host path (sgdet: rare truncation)
         aux = _classify_stage(state, entry)
         n = int(entry.obj_mask.sum())
         num_frames = int(entry.num_frames)
@@ -148,12 +197,14 @@ class EvalPipeline:
             distribution=dist.copy(),
             features=entry.features[:n].cpu().numpy(),
             mem_features=aux["object_mem_features"][:n].cpu().numpy(),
-            # clean_class reads the detector's labels before OSPU relabeling
+            # sgdet's clean_class reads the detector's labels before OSPU
+            # relabeling
             pred_labels=entry.pred_labels[:n].cpu().numpy().astype(np.int64),
             pred_scores=np.zeros(n, np.float32),
             labels=entry.labels[:n].cpu().numpy(),
         )
-        o, human_idx, im_idx, pairs = sgdet_postprocess(o, num_frames)
+        postprocess = sgcls_postprocess if self.mode == "sgcls" else sgdet_postprocess
+        o, human_idx, im_idx, pairs = postprocess(o, num_frames)
         eval_cap = EntryCapacity(self.cap.max_frames, self.cap.max_objs,
                                  max(self.cap.max_objs, self.cap.max_pairs))
         entry2, mem = _rebuild_entry(entry, o, human_idx, im_idx, pairs, eval_cap)
