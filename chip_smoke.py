@@ -45,22 +45,50 @@ result line) on any fault:
    output and give identical evaluator grids; the predcls video (one
    object per frame, so that the temporal metric finds intervals) must
    give at least one interval;
-8. a ``kernels`` JSON line (K1 and K2), then the result line.
+8. the test CLI (``vidsgg_torch.cli.tempura_test.main``, as a user runs
+   it) on an Action Genome-format test split written to a temporary
+   directory: annotation pickles and random 480x270 PNG frames (a minimal
+   writer here, all five row filters), three 16-frame videos and one of 20
+   frames, and the calibrated ResNet-101 detector saved there as a
+   jwyang-format checkpoint for ``--model_path``; predcls, sgcls and sgdet
+   at full width (``--frame_size 600``, default TEMPURA), each run as a
+   one-video warm-up, the three 16-frame videos, the 20-frame video alone
+   (the 32-frame bucket), then all four: every video served (no skip),
+   exactly 3 NMS launches per sgdet video and none in predcls or sgcls,
+   every R@K and mR@K finite and in [0, 1], and in sgdet's run of all
+   four videos (buckets 16 and 32) every NMS call's output bit-equal to
+   the plain version on the inputs the path gave it; ms per video and
+   peak memory per run; what is live at a predcls video's peak (the
+   allocator's history); the RPN conv alone by frame count; and the AG
+   load (PNG decode, upload and resize) on its own, its frames on the
+   card equal to the CPU's within 1e-4;
+9. a ``kernels`` JSON line (K1 and K2), then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import gc
+import io
 import json
+import os
+import pickle
+import re
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
+import zlib
 
 import numpy as np
 import torch
 
+from vidsgg_torch import constants as C
 from vidsgg_torch.data import synthetic_video_annotation
 from vidsgg_torch.eval import (
     evaluate_temporal_consistency,
@@ -633,7 +661,7 @@ def reference_gt(mode: str, det):
     from vidsgg_torch.data.entry import EntryCapacity
     from vidsgg_torch.models import Tempura, TempuraConfig
     from vidsgg_torch.ops.nms import NMS_KERNEL
-    from vidsgg_torch.serving_setup import GtFrontend
+    from vidsgg_torch.detector import GtFrontend
     from vidsgg_torch.train import EvalPipeline, create_serving_state
 
     f, h, w = 8, 160, 256
@@ -718,6 +746,378 @@ def reference_phase():
         reference_gt(mode, det)
 
 
+# the CLI phase: an Action Genome-format test split on disk, served through
+# ``vidsgg_torch.cli.tempura_test.main`` in every mode
+AG_WH = (480, 270)              # AG's frame size: min side 600 gives 1067 x 600
+CLI_FRAME_SIZE = 600
+CLI_VIDEOS = 3                  # 16-frame videos (the first size bucket)
+CLI_LONG = 20                   # one more video, for the 32-frame bucket
+CLI_SEEDS = [300 + i for i in range(CLI_VIDEOS + 1)]
+# GT-box modes keep the default buckets (16/32/64 frames at 4 boxes a
+# frame); sgdet's entries hold 16 detections a frame, so a 32-frame bucket
+# video needs 512 object slots: the 128-frame ladder's capacity
+CLI_FLAGS = {"predcls": [], "sgcls": [], "sgdet": ["--bucket_frames", "128"]}
+# the AG load's frames on the card against the CPU's (float32 values in
+# [-123, 152]: a few ulps)
+AG_LOAD_ATOL = 1e-4
+# frame counts of the RPN conv timed alone (the sgdet frame buckets)
+RPN_CONV_FRAMES = (8, 16, 32)
+
+
+def png_bytes(bgr: np.ndarray) -> bytes:
+    """A minimal PNG writer: 8-bit RGB, zlib, row y filtered with type
+    y % 5 (None, Sub, Up, Avg, Paeth), so a frame uses all five filters."""
+    h, w, _ = bgr.shape
+    raw = np.ascontiguousarray(bgr[:, :, ::-1]).reshape(h, w * 3).astype(np.int32)
+    left = np.zeros_like(raw)
+    left[:, 3:] = raw[:, :-3]
+    up = np.zeros_like(raw)
+    up[1:] = raw[:-1]
+    upleft = np.zeros_like(raw)
+    upleft[1:, 3:] = raw[:-1, :-3]
+    pa, pb, pc = np.abs(up - upleft), np.abs(left - upleft), np.abs(left + up - 2 * upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    preds = np.stack([np.zeros_like(raw), left, up, (left + up) // 2, paeth])
+    kind = np.arange(h) % 5
+    filtered = ((raw - preds[kind, np.arange(h)]) % 256).astype(np.uint8)
+    scanlines = np.concatenate([kind.astype(np.uint8)[:, None], filtered], axis=1)
+
+    def chunk(tag: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + tag + body + struct.pack(">I", zlib.crc32(tag + body))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(scanlines.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def write_ag_split(root: str, videos: list):
+    """An Action Genome-format test split: annotation pickles in AG's schema
+    (person boxes xyxy, object boxes xywh, class and predicate names) from
+    stable synthetic annotations of 1 person + 3 objects a frame, and
+    random 480x270 PNG frames; ``videos`` lists (seed, frames) per video,
+    in dataset order."""
+    os.makedirs(os.path.join(root, "annotations"))
+    person, objects = {}, {}
+    for v, (seed, frames) in enumerate(videos):
+        ann = synthetic_video_annotation(num_frames=frames, objs_per_frame=GT_OBJS_PER_FRAME,
+                                         image_wh=AG_WH, stable=True, seed=seed)
+        rng = np.random.RandomState(seed)
+        os.makedirs(os.path.join(root, "frames", f"{v}.mp4"))
+        for f, frame in enumerate(ann):
+            key = f"{v}.mp4/{f:06d}.png"
+            person[key] = {"bbox": frame[0]["person_bbox"], "bbox_size": AG_WH}
+            objects[key] = [{
+                "class": C.AG_OBJECT_CLASSES[o["class"]],
+                "bbox": [float(o["bbox"][0]), float(o["bbox"][1]),
+                         float(o["bbox"][2] - o["bbox"][0]), float(o["bbox"][3] - o["bbox"][1])],
+                "attention_relationship": [C.AG_ATTENTION_RELATIONSHIPS[i]
+                                           for i in o["attention_relationship"]],
+                "spatial_relationship": [C.AG_SPATIAL_RELATIONSHIPS[i]
+                                         for i in o["spatial_relationship"]],
+                "contacting_relationship": [C.AG_CONTACTING_RELATIONSHIPS[i]
+                                            for i in o["contacting_relationship"]],
+                "visible": True,
+                "metadata": {"set": "test"},
+            } for o in frame[1:]]
+            img = rng.randint(0, 256, (AG_WH[1], AG_WH[0], 3), dtype=np.uint8)
+            with open(os.path.join(root, "frames", key), "wb") as fh:
+                fh.write(png_bytes(img))
+    for name, obj in (("person_bbox.pkl", person),
+                      ("object_bbox_and_relationship.pkl", objects)):
+        with open(os.path.join(root, "annotations", name), "wb") as fh:
+            pickle.dump(obj, fh)
+
+
+def run_cli(argv: list) -> tuple:
+    """``tempura_test.main(argv)`` with its output kept: (evaluators,
+    stdout, videos evaluated, seconds of its evaluation loop)."""
+    from vidsgg_torch.cli import tempura_test
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        evs = tempura_test.main(list(argv))
+    text = out.getvalue()
+    found = re.search(r"^evaluated (\d+) videos in ([0-9.]+)s$", text, re.M)
+    if found is None:
+        raise AssertionError("tempura_test printed no 'evaluated' line")
+    if "skipped" in text:
+        raise AssertionError("tempura_test skipped a video: " + text[-500:])
+    return evs, text, int(found.group(1)), float(found.group(2))
+
+
+@contextlib.contextmanager
+def recording_nms_calls(calls: list):
+    """Records, at the three sites where the sgdet path calls an NMS
+    wrapper (the RPN proposals, the class grid, the grouped NMS), each
+    call's inputs and output. The wrapper itself still runs and counts its
+    launch."""
+    from vidsgg_torch.detector import rpn, sgdet
+    from vidsgg_torch.models import postprocess_device
+    from vidsgg_torch.ops import nms as tnms
+
+    # (module, name it calls, call, plain version)
+    sites = ((rpn, "nms_mask_batched", "rpn", tnms.nms_mask_batched_plain),
+             (sgdet, "batched_class_nms", "grid", tnms.nms_mask_batched_plain),
+             (postprocess_device, "grouped_nms", "grouped", tnms.grouped_nms_plain))
+
+    def clone(x):
+        return x.clone() if torch.is_tensor(x) else x
+
+    def recorder(fn, call, plain):
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            calls.append(dict(call=call, plain=plain, args=[clone(a) for a in args], kw=kw,
+                              out=[clone(o) for o in (out if isinstance(out, tuple) else (out,))]))
+            return out
+        return wrapped
+
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _, _ in sites]
+    try:
+        for mod, attr, call, plain in sites:
+            setattr(mod, attr, recorder(getattr(mod, attr), call, plain))
+        yield calls
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def check_recorded_nms(calls: list, mode: str, run: str) -> list:
+    """Every recorded call's output bit-equal to its plain version on the
+    same inputs; returns (call, problem shape) per call."""
+    shapes = []
+    for i, c in enumerate(calls):
+        want = c["plain"](*c["args"], **c["kw"])
+        want = want if isinstance(want, tuple) else (want,)
+        for j, (got, w) in enumerate(zip(c["out"], want, strict=True)):
+            mask_err(got, w, f"{mode} {run}: call {i} ({c['call']}) output {j}")
+        shapes.append((c["call"], list(c["args"][0].shape[:-1])))
+    return shapes
+
+
+def peak_attribution(snapshot: dict, base: int, device: int, top: int = 8) -> dict:
+    """From a memory-history snapshot (``torch.cuda.memory._snapshot``):
+    the bytes live at the run's peak, grouped by the innermost
+    ``vidsgg_torch`` frame that allocated them (a workspace that a library
+    call takes counts at the line that called it; ``base``: the bytes
+    allocated before the history started)."""
+    events = snapshot["device_traces"][device]
+    freed = ("free_completed", "free")
+    total = best = 0
+    best_i = -1
+    for i, e in enumerate(events):
+        if e["action"] == "alloc":
+            total += e["size"]
+        elif e["action"] in freed:
+            total -= e["size"]
+        if total > best:
+            best, best_i = total, i
+    live = {}
+    for e in events[:best_i + 1]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+        elif e["action"] in freed:
+            live.pop(e["addr"], None)
+    by_site = {}
+    for e in live.values():
+        site = next((f"{f['filename'][f['filename'].rfind('vidsgg_torch'):]}:{f['line']} "
+                     f"({f['name']})" for f in e.get("frames", [])
+                     if "vidsgg_torch" in f["filename"]), "outside vidsgg_torch")
+        nbytes, blocks, largest = by_site.get(site, (0, 0, 0))
+        by_site[site] = (nbytes + e["size"], blocks + 1, max(largest, e["size"]))
+    # (site, bytes, blocks, largest block)
+    sites = sorted(((k,) + v for k, v in by_site.items()), key=lambda r: -r[1])
+    return dict(peak_bytes=base + best, before_run_bytes=base,
+                live_at_peak_bytes=sum(v[0] for v in by_site.values()), sites=sites[:top])
+
+
+def live_cuda_tensors(top: int = 6) -> dict:
+    """What Python still reaches on the card (the tensors ``gc`` finds,
+    parameters included, each storage once), largest (shape, dtype) first,
+    beside ``torch.cuda.memory_allocated()``."""
+    storages, by = {}, {}
+    with warnings.catch_warnings():    # deprecated objects warn when inspected
+        warnings.simplefilter("ignore")
+        tensors = [o for o in gc.get_objects() if isinstance(o, torch.Tensor) and o.is_cuda]
+    for o in tensors:
+        st = o.untyped_storage()
+        if st.data_ptr() not in storages:
+            storages[st.data_ptr()] = st.nbytes()
+            key = f"{list(o.shape)} {o.dtype}"
+            by[key] = by.get(key, 0) + st.nbytes()
+    return dict(allocated_bytes=torch.cuda.memory_allocated(),
+                reachable_bytes=sum(storages.values()),
+                largest=sorted(by.items(), key=lambda kv: -kv[1])[:top])
+
+
+def rpn_conv_by_frames(det) -> list:
+    """The RPN's 3x3 1024->512 conv alone on the CLI's sgdet feature maps
+    (the 608x1152 canvas at stride 16: 38 x 72) by frame count: device ms
+    per call (CUDA events over 5 calls after 2) and the peak allocated
+    beyond the input (cuDNN's workspace)."""
+    conv = det.RCNN_rpn.RPN_Conv
+    gen = torch.Generator(device=det.device).manual_seed(1)
+    rows = []
+    for frames in RPN_CONV_FRAMES:
+        x = torch.randn((frames, 1024, 38, 72), generator=gen, device=det.device)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            ms = cuda_ms(lambda: conv(x), iters=5)
+            peak = torch.cuda.max_memory_allocated() - before
+        rows.append(dict(frames=frames, ms=ms, ms_per_frame=ms / frames, peak_beyond_input=peak))
+        log(f"[cli] RPN conv alone, {frames} x 1024 x 38 x 72: {ms:.3f} ms "
+            f"({ms / frames:.3f} ms per frame), peak beyond the input {peak} bytes "
+            f"({peak / 2**30:.2f} GiB)")
+        del x
+        torch.cuda.empty_cache()
+    return rows
+
+
+def cli_phase(det):
+    """The test CLI at full width on AG-format splits in a temporary
+    directory (and the calibrated detector saved there as a jwyang-format
+    checkpoint, which ``--model_path`` loads): per mode a one-video
+    warm-up, the three 16-frame videos (the first bucket), the 20-frame
+    video alone (the 32-frame bucket, its own split), then all four in one
+    run (the pipeline switching buckets), with the NMS launches, skips,
+    R/mR range and peak memory of each run checked; in sgdet's last run
+    every NMS call's output is held bit for bit against the plain version
+    on the inputs the path gave it. Then one predcls video under the
+    allocator's history (what is live at its peak), the RPN conv by frame
+    count, and the AG load (PNG decode, upload, resize) on its own, its
+    frames on the card against the CPU's."""
+    from vidsgg_torch.data.action_genome import ActionGenome, prep_frames
+    from vidsgg_torch.ops.nms import NMS_KERNEL
+
+    results = {"held_before": live_cuda_tensors()}
+    log(f"[cli] before the CLI runs: {results['held_before']}")
+    with tempfile.TemporaryDirectory(prefix="ag_split_") as tmp:
+        t0 = time.perf_counter()
+        short = [(seed, FRAMES) for seed in CLI_SEEDS[:CLI_VIDEOS]]
+        long = [(CLI_SEEDS[CLI_VIDEOS], CLI_LONG)]
+        splits = {"all": os.path.join(tmp, "ag"), "long": os.path.join(tmp, "ag_long")}
+        write_ag_split(splits["all"], short + long)
+        write_ag_split(splits["long"], long)
+        ckpt = os.path.join(tmp, "faster_rcnn_ag.pth")
+        torch.save({"model": det.state_dict()}, ckpt)
+        log(f"[cli] AG splits ({[f for _, f in short + long]} frames of {AG_WH[0]}x{AG_WH[1]}, "
+            f"PNG with all five row filters; the last video alone in a second split) and the "
+            f"detector checkpoint written in {time.perf_counter() - t0:.1f} s")
+
+        def argv(mode, split, n):
+            return (["--mode", mode, "--data_path", splits[split], "--model_path", ckpt,
+                     "--frame_size", str(CLI_FRAME_SIZE), "--max_videos", str(n),
+                     "--output_path", os.path.join(tmp, "out", mode)] + CLI_FLAGS[mode])
+
+        # (run, split, videos)
+        plan = (("warm-up", "all", 1), ("bucket 16", "all", CLI_VIDEOS),
+                ("bucket 32", "long", 1), ("all", "all", CLI_VIDEOS + 1))
+        for mode in ("predcls", "sgcls", "sgdet"):
+            want = PATH_LAUNCHES if mode == "sgdet" else {}
+            runs = {}
+            for name, split, n in plan:
+                calls = []
+                record = mode == "sgdet" and name == "all"
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                NMS_KERNEL.reset_counts()
+                with recording_nms_calls(calls) if record else contextlib.nullcontext():
+                    evs, text, served, seconds = run_cli(argv(mode, split, n))
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                by = dict(NMS_KERNEL.launches_by)
+                if served != n:
+                    raise AssertionError(f"{mode} {name}: evaluated {served} videos, want {n}")
+                if by != {k: v * n for k, v in want.items()}:
+                    raise AssertionError(f"{mode} {name}: NMS launches {by} for {n} videos, "
+                                         f"want {want} each")
+                grid_vals = {f"{ev.constraint} {m}@{k}": f(k) for ev in evs for k in ev.KS
+                             for m, f in (("R", ev.recall_at), ("mR", ev.mean_recall_at))}
+                bad = {k: v for k, v in grid_vals.items() if not (np.isfinite(v) and 0 <= v <= 1)}
+                if bad:
+                    raise AssertionError(f"{mode} {name}: R/mR outside [0, 1]: {bad}")
+                runs[name] = dict(videos=n, seconds=seconds, ms_per_video=1e3 * seconds / n,
+                                  peak_memory_bytes=peak, before_run_bytes=before,
+                                  own_peak_bytes=peak - before, nms_launches=by,
+                                  r20={ev.constraint: ev.recall_at(20) for ev in evs})
+                log(f"[cli {mode}] {name}: {n} videos in {seconds:.3f} s "
+                    f"({1e3 * seconds / n:.1f} ms per video), peak {peak} bytes "
+                    f"({peak / 2**30:.2f} GiB; {before} bytes allocated before the run, "
+                    f"{(peak - before) / 2**30:.2f} GiB its own), nms launches {by}")
+                if record:
+                    if len(calls) != 3 * n:
+                        raise AssertionError(f"{mode} {name}: recorded {len(calls)} NMS calls")
+                    shapes = check_recorded_nms(calls, mode, name)
+                    runs[name]["nms_calls_bit_equal"] = shapes
+                    log(f"[cli {mode}] {name}: every NMS call of the run bit-equal to the plain "
+                        f"version on its own inputs (call, problem shape): {shapes}")
+                    del calls
+            for line in text.splitlines():
+                if re.match(r"^(-{9}|R@|mR@|Temporal)", line):
+                    log(f"[cli {mode}] {line}")
+            results[mode] = runs
+
+        # what is live at a predcls CLI video's peak, by allocation site
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.memory._record_memory_history(context="alloc", stacks="python",
+                                                 max_entries=1_000_000)
+        try:
+            run_cli(argv("predcls", "all", 1))
+            torch.cuda.synchronize()
+            snapshot = torch.cuda.memory._snapshot()
+        finally:
+            torch.cuda.memory._record_memory_history(enabled=None)
+        attribution = peak_attribution(snapshot, before, torch.cuda.current_device())
+        attribution["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        del snapshot
+        log(f"[cli predcls] peak of one video under the allocator history: "
+            f"{attribution['peak_bytes']} bytes by replay, {attribution['max_memory_allocated']} "
+            f"by max_memory_allocated, {before} allocated before the run; live at the peak:")
+        for site, nbytes, blocks, largest in attribution["sites"]:
+            log(f"[cli predcls]   {nbytes:>12} bytes ({nbytes / 2**30:.2f} GiB) in {blocks} "
+                f"blocks, the largest {largest} bytes: {site}")
+        results["predcls_peak_attribution"] = attribution
+        results["rpn_conv_by_frames"] = rpn_conv_by_frames(det)
+
+        # the AG load on its own: PNG decode on the host, then upload + resize
+        ds = ActionGenome("test", "large", splits["all"], target_min_side=CLI_FRAME_SIZE)
+        scale = CLI_FRAME_SIZE / min(AG_WH)
+        frame_shape = (round(AG_WH[1] * scale), round(AG_WH[0] * scale), 3)
+        load = []
+        for i in range(len(ds)):
+            t0 = time.perf_counter()
+            raw = ds.read_frames(i)
+            t1 = time.perf_counter()
+            blob, scale = prep_frames(raw, CLI_FRAME_SIZE, det.device)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if tuple(blob.shape) != (len(raw),) + frame_shape or not bool(torch.isfinite(blob).all()):
+                raise AssertionError(f"AG load: frames {tuple(blob.shape)}")
+            row = dict(frames=len(raw), decode_ms=1e3 * (t1 - t0),
+                       upload_resize_ms=1e3 * (t2 - t1), scale=scale)
+            if i == 0:
+                # the card's upload, mean subtraction, resize and padding
+                # against the same code on the CPU
+                cpu_blob, cpu_scale = prep_frames(raw, CLI_FRAME_SIZE, "cpu")
+                err = float((blob.cpu() - cpu_blob).abs().max())
+                if cpu_scale != scale or err > AG_LOAD_ATOL:
+                    raise AssertionError(f"AG load on the card differs from the CPU's: max "
+                                         f"|diff| {err}, scale {scale} vs {cpu_scale}")
+                row["max_abs_err_vs_cpu"] = err
+                log(f"[cli] AG load of video 0 on the card == on the CPU: max |diff| {err} "
+                    f"(tolerance {AG_LOAD_ATOL})")
+            load.append(row)
+            log(f"[cli] AG load of video {i} ({len(raw)} frames): PNG decode {1e3 * (t1 - t0):.1f} ms "
+                f"({1e3 * (t1 - t0) / len(raw):.2f} ms per frame), upload + mean subtraction + "
+                f"resize {1e3 * (t2 - t1):.1f} ms, frames {tuple(blob.shape)}, scale {scale:.6f}")
+        results["ag_load"] = load
+    log("[cli] " + json.dumps(results))
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the card only", file=sys.stderr)
@@ -749,6 +1149,10 @@ def main() -> int:
         stable=True, seed=seed) for seed in GT_SEEDS[1:]]
     scores["sgdet"] = score_phase("sgdet", sgdet_anns, sgdet_preds)
     reference_phase()
+    # the CLI's peak memory counts only what the CLI holds besides the detector
+    del videos
+    torch.cuda.empty_cache()
+    cli_phase(det)
     launches = sum(r["launches"] for r in rows)
     ranked_launches = sum(r["launches_by"].get("ranked", 0) for r in rows)
 

@@ -163,7 +163,8 @@ def test_gt_video_card_float32_matches_cpu_float64(cuda_device, gt_models, mode)
     import copy
 
     from vidsgg_torch.data import EntryCapacity
-    from vidsgg_torch.serving_setup import GtFrontend, gt_video, make_frames
+    from vidsgg_torch.detector import GtFrontend
+    from vidsgg_torch.serving_setup import gt_video, make_frames
     from vidsgg_torch.train import EvalPipeline, create_serving_state
 
     det, rels = gt_models

@@ -13,6 +13,7 @@ import dataclasses
 from typing import Callable
 
 import torch
+from torch.profiler import record_function
 
 from vidsgg_torch import constants as C
 from vidsgg_torch.data.entry import Entry
@@ -110,3 +111,20 @@ def featurize_gt_entry(entry: Entry, fmaps: torch.Tensor,
     union_feat, _, spatial_masks = pair_union_features(entry, fmaps)
     return dataclasses.replace(entry, features=feats, union_feat=union_feat,
                                spatial_masks=spatial_masks)
+
+
+class GtFrontend:
+    """Frames + GT-box entry skeleton -> featurized Entry and base feature
+    maps: ResNet base, GT ROIAlign 7x7 at 1/16 and the R-CNN head."""
+
+    def __init__(self, model):
+        self.model = model
+
+    @torch.inference_mode()
+    def __call__(self, frames, entry):
+        """frames [F, H, W, 3] (network scale) -> (Entry, fmaps [F, h, w, 1024])."""
+        with record_function("vidsgg.backbone"):
+            fmaps = self.model.base_features(frames).permute(0, 2, 3, 1)
+        with record_function("vidsgg.featurize_gt"):
+            entry = featurize_gt_entry(entry, fmaps, self.model.head_to_tail)
+        return entry, fmaps

@@ -23,10 +23,9 @@ import dataclasses
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from vidsgg_torch.data import EntryCapacity, build_gt_entry, synthetic_video_annotation
-from vidsgg_torch.detector import FasterRCNN, SgdetCaps, SgdetFrontend, featurize_gt_entry
+from vidsgg_torch.detector import FasterRCNN, GtFrontend, SgdetCaps, SgdetFrontend
 from vidsgg_torch.models import Tempura, TempuraConfig
 from vidsgg_torch.train import EvalPipeline, create_serving_state
 
@@ -128,20 +127,3 @@ def gt_video(seed: int, mode: str, device, cap: EntryCapacity = GT_CAP,
         dist *= entry.obj_mask.cpu().numpy()[:, None]
         entry = dataclasses.replace(entry, distribution=torch.from_numpy(dist).to(entry.device))
     return ann, entry
-
-
-class GtFrontend:
-    """Frames + GT-box entry skeleton -> featurized Entry and base feature
-    maps: ResNet base, GT ROIAlign 7x7 at 1/16 and the R-CNN head."""
-
-    def __init__(self, model: FasterRCNN):
-        self.model = model
-
-    @torch.inference_mode()
-    def __call__(self, frames, entry):
-        """frames [F, H, W, 3] (network scale) -> (Entry, fmaps [F, h, w, 1024])."""
-        with record_function("vidsgg.backbone"):
-            fmaps = self.model.base_features(frames).permute(0, 2, 3, 1)
-        with record_function("vidsgg.featurize_gt"):
-            entry = featurize_gt_entry(entry, fmaps, self.model.head_to_tail)
-        return entry, fmaps
