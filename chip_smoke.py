@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Drives the port's serving paths, TEMPURA sgdet (the main path, through
-the NMS kernel), predcls and sgcls, at full width on the CUDA card, scores
-what they serve with the port's evaluator, and fails (nonzero exit, no
-result line) on any fault:
+the NMS kernel), predcls and sgcls, and TEAT-GT in all three modes, at
+full width on the CUDA card, scores what they serve with the port's
+evaluator, and fails (nonzero exit, no result line) on any fault:
 
 1. device: name, count, ``nvidia-smi`` name and power limit; TF32 off;
 2. build: compiles the NMS kernel (``vidsgg_torch/ops/csrc/nms.cu``) with
@@ -33,19 +33,32 @@ result line) on any fault:
    ``EvalPipeline("predcls" | "sgcls")`` with full-width TEMPURA (predcls
    K=6 without tracking, sgcls K=4 with tracking), one warm-up and three
    timed videos each; no NMS kernel launch may happen on these paths;
-6. scoring: every timed video of every mode through the port's R/mR
+6. TEAT-GT serving at its published widths (predcls 12 layers x 32
+   heads, sgcls and sgdet 6 x 16 with tracking; d = 768, k = 50) through
+   ``EvalPipeline(mode, cap, needs_union=False)``: the GT-box videos of 5.
+   (clip caps 5 x 32 tokens) and sgdet on the serving frames of 4. (clip
+   caps 5 x 40 tokens), one warm-up and three timed videos each; every sgdet
+   video launches the kernel 3 times, each call bit-equal to the plain
+   version on its own inputs, predcls and sgcls none; per mode the eigh of
+   the timed videos' clip graphs (float64 on the card, the path's, and
+   float32, each against float64 on the CPU: eigenvalues, cluster
+   projectors, ms per call) and sgdet's tokens dropped by the clip caps;
+7. scoring: every timed video of every mode through the port's R/mR
    evaluator (``get_ag_evaluators``) against its synthetic annotation
    (sgdet takes the GT modes' annotations as its frames' GT), and predcls
    and sgcls through the temporal-consistency metric; every R@K and mR@K
    must be finite and in [0, 1]. Random weights make these numbers
    meaningless as accuracy: they show that the path runs;
-7. reference: small configurations served on the card (sgdet's grouped
+8. reference: small configurations served on the card (sgdet's grouped
    NMS through the kernel's float64 instantiation) and on the CPU (plain
    versions) in float64, in all three modes, must agree on every discrete
    output and give identical evaluator grids; the predcls video (one
    object per frame, so that the temporal metric finds intervals) must
-   give at least one interval;
-8. the test CLI (``vidsgg_torch.cli.tempura_test.main``, as a user runs
+   give at least one interval; a small TEAT-GT likewise in all three modes,
+   the CPU's eigendecompositions injected into the card's run after its
+   adjacency is checked equal (eigenvectors are unique only up to sign and
+   eigenspace basis, which LAPACK and cuSOLVER pick differently);
+9. the test CLI (``vidsgg_torch.cli.tempura_test.main``, as a user runs
    it) on an Action Genome-format test split written to a temporary
    directory: annotation pickles and random 480x270 PNG frames (a minimal
    writer here, all five row filters), three 16-frame videos and one of 20
@@ -58,11 +71,14 @@ result line) on any fault:
    every R@K and mR@K finite and in [0, 1], and in sgdet's run of all
    four videos (buckets 16 and 32) every NMS call's output bit-equal to
    the plain version on the inputs the path gave it; ms per video and
-   peak memory per run; what is live at a predcls video's peak (the
-   allocator's history); the RPN conv alone by frame count; and the AG
-   load (PNG decode, upload and resize) on its own, its frames on the
-   card equal to the CPU's within 1e-4;
-9. a ``kernels`` JSON line (K1 and K2), then the result line.
+   peak memory per run; then ``vidsgg_torch.cli.teatgt_test`` on the same
+   split at full width, all four videos in one run a mode, with the same
+   checks; what is live at a predcls video's peak (the allocator's
+   history); the RPN conv alone by frame count; and the AG load (PNG
+   decode, upload and resize) on its own, its frames on the card equal to
+   the CPU's within 1e-4;
+10. a ``kernels`` JSON line (K1 and K2, launches per main path: TEMPURA's
+    and TEAT-GT's sgdet videos), then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -104,6 +120,7 @@ from vidsgg_torch.serving_setup import (
     build_models,
     build_pipeline,
     build_relation,
+    build_teatgt,
     calibrate_random_heads,
     gt_video,
     make_frames,
@@ -122,6 +139,10 @@ REFERENCE_DEVICES = ("cpu", "cuda")
 # NMS kernel launches of one served video, by call contract: the RPN
 # proposal NMS, the (frame, class) grid, the relation stage's grouped NMS
 PATH_LAUNCHES = {"presorted": 1, "ranked": 1, "grouped": 1}
+TEATGT_MODES = ("predcls", "sgcls", "sgdet")
+# eigenvalues of the float64 reference closer than this form one cluster,
+# whose projector the card's eigenvectors are held to
+EIG_CLUSTER_TOL = 1e-6
 
 
 def log(msg: str):
@@ -744,6 +765,254 @@ def reference_phase():
         f"identical grids; max float difference {worst:.3e}")
     for mode in GT_MODES:
         reference_gt(mode, det)
+    for mode in TEATGT_MODES:
+        reference_teatgt(mode, det, (frames, (f, h, w, dets)))
+
+
+@contextlib.contextmanager
+def recording_eigh(calls: list):
+    """Records each (adjacency, node mask) TEAT-GT decomposes (clones; no
+    sync), for the eigh measurements after the timed run."""
+    from vidsgg_torch.models import teatgt
+
+    eig = teatgt.masked_laplacian_eig
+
+    def wrapped(adj, mask):
+        calls.append((adj.clone(), mask.clone()))
+        return eig(adj, mask)
+
+    teatgt.masked_laplacian_eig = wrapped
+    try:
+        yield calls
+    finally:
+        teatgt.masked_laplacian_eig = eig
+
+
+def projector_error(val, vec, val64, vec64, mask) -> tuple[float, float]:
+    """(largest |P - P64| over the eigenvalue clusters of each graph's valid
+    spectrum, largest |eigenvalue - float64 eigenvalue| there): clusters are
+    runs of float64 eigenvalues closer than ``EIG_CLUSTER_TOL``, and P the
+    projector onto the columns of a cluster."""
+    val, vec, val64, vec64 = (t.double().cpu() for t in (val, vec, val64, vec64))
+    proj = eig = 0.0
+    for b in range(val64.shape[0]):
+        nv = int(mask[b].sum())
+        i = 0
+        while i < nv:
+            j = i + 1
+            while j < nv and float(val64[b, j] - val64[b, j - 1]) < EIG_CLUSTER_TOL:
+                j += 1
+            v, v64 = vec[b][:, i:j], vec64[b][:, i:j]
+            proj = max(proj, float((v @ v.T - v64 @ v64.T).abs().max()))
+            i = j
+        if nv:
+            eig = max(eig, float((val[b, :nv] - val64[b, :nv]).abs().max()))
+    return proj, eig
+
+
+def eigh_stats(calls: list) -> dict:
+    """Over the recorded clip graphs: the eigendecomposition on the card in
+    float64 (the path's) and in float32 (``vidsgg``'s dtype), each against
+    float64 on the CPU, and the time of each call on the card."""
+    from vidsgg_torch.ops.laplacian import masked_laplacian_eig
+
+    out = dict(graphs=0, shape=None, proj_err_f32=0.0, eig_err_f32=0.0, proj_err_f64=0.0,
+               eig_err_f64=0.0, ms_f32=[], ms_f64=[])
+    for adj, mask in calls:
+        ref = masked_laplacian_eig(adj.double().cpu(), mask.cpu())
+        for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+            a = adj.to(dt)
+            val, vec = masked_laplacian_eig(a, mask)
+            p, e = projector_error(val, vec, *ref, mask.cpu())
+            out[f"proj_err_{tag}"] = max(out[f"proj_err_{tag}"], p)
+            out[f"eig_err_{tag}"] = max(out[f"eig_err_{tag}"], e)
+            out[f"ms_{tag}"].append(cuda_ms(lambda: masked_laplacian_eig(a, mask), iters=5))
+        out["graphs"] += adj.shape[0]
+        out["shape"] = list(adj.shape)
+        out["valid_nodes"] = sorted(set(out.get("valid_nodes", [])) | set(mask.sum(1).tolist()))
+    return out
+
+
+def token_drops(pred: dict, caps) -> tuple[int, int]:
+    """(tokens beyond their clip's capacity, tokens) of a served video: a
+    frame with pairs holds its person token and one per pair, and a clip
+    keeps its first ``tokens_per_clip`` in frame order (``vidsgg``'s
+    semantics: a dropped object token leaves its pair with zero logits)."""
+    per_frame = np.bincount(pred["im_idx"], minlength=caps.n_clips * caps.clip_size)
+    tokens = per_frame + (per_frame > 0)
+    per_clip = tokens[: caps.n_clips * caps.clip_size].reshape(caps.n_clips, caps.clip_size).sum(1)
+    return int(np.maximum(per_clip - caps.tokens_per_clip, 0).sum()), int(tokens.sum())
+
+
+def serve_teatgt_phase(det, mode: str, sgdet_frames=None):
+    """TEAT-GT at full width in ``mode``: one warm-up and N_VIDEOS timed
+    videos, the GT-box videos of ``serve_gt_phase`` (predcls, sgcls) or the
+    serving phase's frames (sgdet), through ``EvalPipeline(mode, cap,
+    needs_union=False)``. Each sgdet video launches the NMS kernel 3 times,
+    every call held bit for bit to the plain version on its own inputs;
+    predcls and sgcls none. Then the eigh measurements on the timed videos'
+    clip graphs, and sgdet's token drops."""
+    from vidsgg_torch.ops.nms import NMS_KERNEL
+
+    t0 = time.perf_counter()
+    rel = build_teatgt(mode, det.device)
+    front, pipe, state = build_pipeline(det, rel, mode)
+    torch.cuda.synchronize()
+    caps = rel.cfg.caps
+    log(f"[teatgt {mode}] TEAT-GT {rel.cfg.encoder_layers} layers x "
+        f"{rel.cfg.encoder_attention_heads} heads, d {rel.cfg.encoder_embed_dim}, k "
+        f"{rel.cfg.lap_node_id_k}, tracking {rel.cfg.tracking}, {caps}; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    video_size = (float(W), float(H)) if mode == "sgdet" else (float(GT_IMAGE_WH[0]),
+                                                               float(GT_IMAGE_WH[1]))
+    want = PATH_LAUNCHES if mode == "sgdet" else {}
+    rows, preds, anns, eig_calls = [], [], [], []
+    for i, seed in enumerate(GT_SEEDS):
+        ann = synthetic_video_annotation(num_frames=FRAMES, objs_per_frame=GT_OBJS_PER_FRAME,
+                                         image_wh=GT_IMAGE_WH, stable=True, seed=seed)
+        if mode != "sgdet":
+            ann, skeleton = gt_video(seed, mode, det.device)
+            frames = make_frames(seed, FRAMES, H, W, det.device)
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        calls, eigs = [], []
+        torch.cuda.synchronize()
+        NMS_KERNEL.reset_counts()
+        with recording_nms_calls(calls) if mode == "sgdet" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            if mode == "sgdet":
+                entry, fmaps = front(sgdet_frames[i], (float(H), float(W)), 1.0,
+                                     video_size=video_size)
+            else:
+                entry, fmaps = front(frames, skeleton)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with recording_eigh(eigs):
+                pred = pipe(state, entry, fmaps, gt_entry=None if mode == "sgdet" else entry)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        by = dict(NMS_KERNEL.launches_by)
+        n, p = check_pred(pred, video_size)
+        tag = "warm-up" if i == 0 else f"video {i}"
+        if by != want:
+            raise AssertionError(f"teatgt {mode} {tag}: NMS launches {by}, want {want}")
+        if pipe.last_route != "device":
+            raise AssertionError(f"teatgt {mode} {tag}: took the {pipe.last_route} route")
+        if len(eigs) != 1:
+            raise AssertionError(f"teatgt {mode} {tag}: {len(eigs)} eigendecompositions")
+        if len(calls) != (3 if mode == "sgdet" else 0):
+            raise AssertionError(f"teatgt {mode} {tag}: {len(calls)} NMS calls recorded")
+        shapes = check_recorded_nms(calls, f"teatgt {mode}", tag) if calls else []
+        dropped, tokens = token_drops(pred, caps)
+        log(f"[teatgt {mode}] {tag}: {1e3 * (t2 - t0):.1f} ms ({'detect' if mode == 'sgdet' else 'featurize'} "
+            f"{1e3 * (t1 - t0):.1f}; relation {1e3 * (t2 - t1):.1f}), objects {n}, pairs {p}, "
+            f"tokens {tokens}, dropped by the clip caps {dropped}, nms launches {by}"
+            + (f", every NMS call bit-equal to plain {shapes}" if shapes else ""))
+        if i > 0:
+            rows.append(dict(ms=1e3 * (t2 - t0), front_ms=1e3 * (t1 - t0),
+                             relation_ms=1e3 * (t2 - t1), objects=n, pairs=p, tokens=tokens,
+                             dropped_tokens=dropped, launches=sum(by.values()),
+                             launches_by=by))
+            preds.append(pred)
+            anns.append(ann)
+            eig_calls.extend(eigs)
+    peak = torch.cuda.max_memory_allocated()
+    mean = {k: sum(r[k] for r in rows) / len(rows) for k in ("ms", "front_ms", "relation_ms")}
+    eig = eigh_stats(eig_calls)
+    log(f"[teatgt {mode}] peak memory allocated {peak} bytes ({peak / 2**30:.2f} GiB); mean "
+        f"over timed videos: {json.dumps(mean)}")
+    log(f"[teatgt {mode}] eigh on {eig['graphs']} clip graphs {eig['shape']} (valid nodes "
+        f"{eig['valid_nodes']}): float64 on the card (the path's) {min(eig['ms_f64']):.3f}-"
+        f"{max(eig['ms_f64']):.3f} ms per call, projector error {eig['proj_err_f64']:.3e}, "
+        f"eigenvalue error {eig['eig_err_f64']:.3e}; float32 on the card "
+        f"{min(eig['ms_f32']):.3f}-{max(eig['ms_f32']):.3f} ms, projector error "
+        f"{eig['proj_err_f32']:.3e}, eigenvalue error {eig['eig_err_f32']:.3e} (both "
+        f"against float64 on the CPU)")
+    del front, pipe, state, rel
+    torch.cuda.empty_cache()
+    return dict(videos=rows, peak_memory_bytes=peak, mean=mean, eigh=eig), preds, anns
+
+
+@contextlib.contextmanager
+def injected_eigh(recorded: list, inject: bool):
+    """The CPU run records each clip decomposition TEAT-GT makes (inputs and
+    outputs); the card's run (``inject``) gets them back in order, after
+    its adjacency is checked equal to the CPU's: eigenvectors are unique
+    only up to sign and the basis of a repeated eigenvalue's eigenspace,
+    which LAPACK and cuSOLVER pick differently, and TokenGT reads them raw."""
+    from vidsgg_torch.models import teatgt
+
+    eig = teatgt.masked_laplacian_eig
+
+    def record(adj, mask):
+        val, vec = eig(adj, mask)
+        recorded.append((adj.clone(), mask.clone(), val, vec))
+        return val, vec
+
+    def replay(adj, mask):
+        want_adj, want_mask, val, vec = recorded.pop(0)
+        if not (torch.equal(adj.cpu(), want_adj) and torch.equal(mask.cpu(), want_mask)):
+            flips = int((adj.cpu() != want_adj).sum())
+            raise AssertionError(f"TEAT-GT reference: {flips} adjacency entries differ "
+                                 f"between card and CPU")
+        return val.to(adj.device), vec.to(adj.device)
+
+    teatgt.masked_laplacian_eig = replay if inject else record
+    try:
+        yield
+    finally:
+        teatgt.masked_laplacian_eig = eig
+
+
+def reference_teatgt(mode: str, det, sgdet_video=None):
+    """A small float64 TEAT-GT (d 32, 2 layers, 4 heads; the OSPU at full
+    width) served in ``mode`` on the CPU (plain versions) and on the card,
+    the CPU's eigendecompositions injected into the card's run: every
+    discrete output equal, identical grids. GT modes: an 8-frame GT-box
+    video of 3 objects a frame; sgdet: the reference phase's video."""
+    from vidsgg_torch.data.entry import EntryCapacity
+    from vidsgg_torch.detector import GtFrontend, SgdetCaps, SgdetFrontend
+    from vidsgg_torch.models import TeatGT, TeatGTConfig
+    from vidsgg_torch.models.graph_build import ClipCaps
+    from vidsgg_torch.train import EvalPipeline, create_serving_state
+
+    cfg = TeatGTConfig.for_mode(mode, encoder_layers=2, encoder_attention_heads=4,
+                                encoder_embed_dim=32, encoder_ffn_embed_dim=48,
+                                caps=ClipCaps(5, 2, 24, 96, 8))
+    rel = TeatGT(cfg, device="cpu", generator=torch.Generator().manual_seed(9)).double()
+    if mode == "sgdet":
+        frames, (f, h, w, dets) = sgdet_video
+        cap = EntryCapacity(f, f * dets, 48)
+        ann = synthetic_video_annotation(num_frames=f, objs_per_frame=GT_OBJS_PER_FRAME,
+                                         image_wh=(w, h), seed=10)
+    else:
+        f, h, w = 8, 160, 256
+        cap = EntryCapacity(f, 4 * f, 3 * f)
+        frames = make_frames(12, f, h, w, "cpu")
+        ann, skeleton = gt_video(32, mode, "cpu", cap=cap, num_frames=f,
+                                 im_scale=w / GT_IMAGE_WH[0])
+    preds, recorded = [], []
+    for dev in REFERENCE_DEVICES:
+        d = det if dev == "cpu" else copy.deepcopy(det).to(dev)
+        r = rel if dev == "cpu" else copy.deepcopy(rel).to(dev)
+        pipe = EvalPipeline(mode, cap, needs_union=False, device=dev)
+        with injected_eigh(recorded, inject=bool(preds)), torch.inference_mode():
+            if mode == "sgdet":
+                entry, fmaps = SgdetFrontend(d, SgdetCaps(dets_per_frame=dets), cap, device=dev)(
+                    frames.to(dev), (float(h), float(w)), 1.0, video_size=(float(w), float(h)))
+                preds.append(pipe(create_serving_state(r), entry, fmaps))
+            else:
+                entry, fmaps = GtFrontend(d)(frames.to(dev), skeleton.to(dev))
+                preds.append(pipe(create_serving_state(r), entry, fmaps, gt_entry=entry))
+    if recorded:
+        raise AssertionError(f"TEAT-GT {mode} reference: {len(recorded)} decompositions unused")
+    b, a = preds
+    worst = agree(a, b, f"teatgt {mode} reference")
+    scores = same_grids(mode, ann, a, b)
+    log(f"[reference] small float64 TEAT-GT {mode} video, the CPU's eigenvectors in the "
+        f"card's run: card == CPU on every discrete output ({len(b['pred_labels'])} objects, "
+        f"{len(b['pair_idx'])} pairs), identical grids (with R@20 "
+        f"{scores['with']['R@20']:.4f}); max float difference {worst:.3e}")
 
 
 # the CLI phase: an Action Genome-format test split on disk, served through
@@ -827,20 +1096,21 @@ def write_ag_split(root: str, videos: list):
             pickle.dump(obj, fh)
 
 
-def run_cli(argv: list) -> tuple:
-    """``tempura_test.main(argv)`` with its output kept: (evaluators,
-    stdout, videos evaluated, seconds of its evaluation loop)."""
-    from vidsgg_torch.cli import tempura_test
+def run_cli(argv: list, cli: str = "tempura_test") -> tuple:
+    """``vidsgg_torch.cli.<cli>.main(argv)`` with its output kept:
+    (evaluators, stdout, videos evaluated, seconds of its evaluation loop)."""
+    import importlib
 
+    module = importlib.import_module(f"vidsgg_torch.cli.{cli}")
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        evs = tempura_test.main(list(argv))
+        evs = module.main(list(argv))
     text = out.getvalue()
     found = re.search(r"^evaluated (\d+) videos in ([0-9.]+)s$", text, re.M)
     if found is None:
-        raise AssertionError("tempura_test printed no 'evaluated' line")
+        raise AssertionError(f"{cli} printed no 'evaluated' line")
     if "skipped" in text:
-        raise AssertionError("tempura_test skipped a video: " + text[-500:])
+        raise AssertionError(f"{cli} skipped a video: " + text[-500:])
     return evs, text, int(found.group(1)), float(found.group(2))
 
 
@@ -1058,6 +1328,39 @@ def cli_phase(det):
                     log(f"[cli {mode}] {line}")
             results[mode] = runs
 
+        # teatgt_test on the same split: all four videos in one run a mode
+        for mode in ("predcls", "sgcls", "sgdet"):
+            want = PATH_LAUNCHES if mode == "sgdet" else {}
+            n = CLI_VIDEOS + 1
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            NMS_KERNEL.reset_counts()
+            evs, text, served, seconds = run_cli(argv(mode, "all", n), cli="teatgt_test")
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            by = dict(NMS_KERNEL.launches_by)
+            if served != n:
+                raise AssertionError(f"teatgt_test {mode}: evaluated {served} videos, want {n}")
+            if by != {k: v * n for k, v in want.items()}:
+                raise AssertionError(f"teatgt_test {mode}: NMS launches {by} for {n} videos, "
+                                     f"want {want} each")
+            bad = {f"{ev.constraint} {m}@{k}": f(k) for ev in evs for k in ev.KS
+                   for m, f in (("R", ev.recall_at), ("mR", ev.mean_recall_at))
+                   if not (np.isfinite(f(k)) and 0 <= f(k) <= 1)}
+            if bad:
+                raise AssertionError(f"teatgt_test {mode}: R/mR outside [0, 1]: {bad}")
+            results[f"teatgt {mode}"] = dict(
+                videos=n, seconds=seconds, ms_per_video=1e3 * seconds / n,
+                peak_memory_bytes=peak, own_peak_bytes=peak - before, nms_launches=by,
+                r20={ev.constraint: ev.recall_at(20) for ev in evs})
+            log(f"[cli teatgt {mode}] all: {n} videos in {seconds:.3f} s "
+                f"({1e3 * seconds / n:.1f} ms per video), own peak {peak - before} bytes "
+                f"({(peak - before) / 2**30:.2f} GiB), nms launches {by}")
+            for line in text.splitlines():
+                if re.match(r"^(R@20|mR@20|Temporal)", line):
+                    log(f"[cli teatgt {mode}] {line}")
+
         # what is live at a predcls CLI video's peak, by allocation site
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1148,13 +1451,20 @@ def main() -> int:
         num_frames=FRAMES, objs_per_frame=GT_OBJS_PER_FRAME, image_wh=GT_IMAGE_WH,
         stable=True, seed=seed) for seed in GT_SEEDS[1:]]
     scores["sgdet"] = score_phase("sgdet", sgdet_anns, sgdet_preds)
+    teatgt_runs = {}
+    for mode in TEATGT_MODES:
+        teatgt_runs[mode], preds, anns = serve_teatgt_phase(det, mode, videos)
+        scores[f"teatgt {mode}"] = score_phase(mode, anns, preds)
     reference_phase()
     # the CLI's peak memory counts only what the CLI holds besides the detector
     del videos
     torch.cuda.empty_cache()
     cli_phase(det)
-    launches = sum(r["launches"] for r in rows)
-    ranked_launches = sum(r["launches_by"].get("ranked", 0) for r in rows)
+    # launches on the main paths: TEMPURA's and TEAT-GT's sgdet videos
+    paths = {"tempura sgdet": rows, "teatgt sgdet": teatgt_runs["sgdet"]["videos"]}
+    launches = {k: sum(r["launches"] for r in v) for k, v in paths.items()}
+    ranked_launches = {k: sum(r["launches_by"].get("ranked", 0) for r in v)
+                       for k, v in paths.items()}
 
     def entry(name, replaces, call_names, launched, err):
         sel = [timings[c] for c in call_names]
@@ -1163,7 +1473,8 @@ def main() -> int:
             "route": "cuda",
             "source": "vidsgg_torch/ops/csrc/nms.cu",
             "replaces": replaces,
-            "launches": launched,
+            "launches": sum(launched.values()),
+            "launches_by_path": launched,
             "max_abs_err": err,
             # per served video: the sum over its calls (one launch each)
             "ms": sum(t["ms"] for t in sel),
@@ -1187,6 +1498,8 @@ def main() -> int:
                                  "frames": [FRAMES, H, W]}))
     for mode in GT_MODES:
         log(f"[serve {mode}] " + json.dumps(gt_runs[mode]))
+    for mode in TEATGT_MODES:
+        log(f"[teatgt {mode}] " + json.dumps(teatgt_runs[mode]))
     log("[score] " + json.dumps(scores))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),

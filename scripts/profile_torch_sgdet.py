@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where one served sgdet video spends its time in the PyTorch/CUDA port.
 
-    python3 scripts/profile_torch_sgdet.py [--videos N]
+    python3 scripts/profile_torch_sgdet.py [--videos N] [--model teatgt]
 
 Builds the serving configuration of ``chip_smoke.py``
-(``vidsgg_torch.serving_setup``: ResNet-101 Faster R-CNN + TEMPURA, seeded
-random weights, 16x608x1008 frames, float32, TF32 off) on the CUDA card,
+(``vidsgg_torch.serving_setup``: ResNet-101 Faster R-CNN + TEMPURA, or
+TEAT-GT with ``--model teatgt``, seeded random weights, 16x608x1008
+frames, float32, TF32 off) on the CUDA card,
 serves one warm-up video, then traces N videos with ``torch.profiler`` and
 prints, per video:
 
@@ -41,6 +42,7 @@ from vidsgg_torch.serving_setup import (  # noqa: E402
     W,
     build_models,
     build_pipeline,
+    build_teatgt,
     make_frames,
 )
 
@@ -86,6 +88,8 @@ def peak_extra_bytes(fn, *args):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--videos", type=int, default=2, help="videos in the trace")
+    ap.add_argument("--model", choices=("tempura", "teatgt"), default="tempura",
+                    help="the relation model")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -98,6 +102,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     det, rel = build_models()
+    if args.model == "teatgt":
+        rel = build_teatgt("sgdet", det.device)
     front, pipe, state = build_pipeline(det, rel)
     videos = [make_frames(100 + i, FRAMES, H, W, "cuda") for i in range(args.videos + 1)]
     serve(front, pipe, state, videos[0])  # warm-up
@@ -133,7 +139,7 @@ def main():
     for name, ms, count in own:
         print(f"[own kernel] {ms:9.4f} ms  x{count:<7g} {name[:110]}", flush=True)
     print(json.dumps({
-        "device": smi, "videos": args.videos, "wall_ms": wall_ms,
+        "device": smi, "model": args.model, "videos": args.videos, "wall_ms": wall_ms,
         "device_kernel_ms": device_ms, "busy_share": device_ms / wall_ms,
         "stages_ms": {k: dict(host=h, device=d) for k, (h, d) in stages.items()},
         "top_kernels": [dict(name=k[:200], ms=ms, count=c) for k, ms, c in kernels[:15]],

@@ -4,7 +4,11 @@ contracts (presorted with max_keep, ranked inside the call, grouped with
 ranks). Tolerance: exact (keep masks are booleans, ranks integers).
 Then the predcls and sgcls paths: a small video served in float32 on the
 card against float64 on the CPU (discrete outputs exact), and the sgcls
-relabel on the card against its CPU run (bit for bit).
+relabel on the card against its CPU run (bit for bit). Then TEAT-GT: the
+masked Laplacian eigendecomposition on the card against float64 on the
+CPU (eigenvalues and the projector of each eigenvalue cluster), and a
+predcls video served in float32 on the card against float64 on the CPU
+with the CPU's eigenvectors injected.
 Skipped where there is no CUDA card.
 
 This file imports neither JAX nor ``vidsgg``, so it also runs on a machine
@@ -217,3 +221,119 @@ def test_sgcls_postprocess_device_card_equals_cpu(cuda_device, seed):
     for f in dataclasses.fields(want):
         g, w = getattr(got, f.name).cpu(), getattr(want, f.name)
         assert g.dtype == w.dtype and torch.equal(g, w), f.name
+
+
+# ---------------------------------------------------------------------------
+# TEAT-GT on the card
+# ---------------------------------------------------------------------------
+
+
+def _clip_graphs(n=40):
+    """Clip-like graphs: isolated nodes, several components, a dense block,
+    the (0,1)/(1,0) fallback, and padding."""
+    rng = np.random.RandomState(11)
+    adj = np.zeros((5, n, n), np.float32)
+    valid = [6, 17, 40, 29, 2]
+    for b, nv in enumerate(valid):
+        a = np.triu(rng.rand(nv, nv) < (0.08, 0.2, 0.35, 0.05, 1.0)[b], 1)
+        adj[b, :nv, :nv] = a + a.T
+    adj[0, 4:, :] = adj[0, :, 4:] = 0.0          # nodes 4 and 5 isolated
+    mask = np.arange(n)[None] < np.array(valid)[:, None]
+    return torch.from_numpy(adj), torch.from_numpy(mask)
+
+
+def _cluster_projectors(val, vec, mask, tol=1e-6):
+    """Projectors onto each run of float64 eigenvalues closer than ``tol``
+    in each graph's valid spectrum, keyed by (graph, first, last)."""
+    out = {}
+    for b in range(val.shape[0]):
+        nv, i = int(mask[b].sum()), 0
+        while i < nv:
+            j = i + 1
+            while j < nv and float(val[b, j] - val[b, j - 1]) < tol:
+                j += 1
+            v = vec[b][:, i:j].double()
+            out[(b, i, j)] = v @ v.T
+            i = j
+    return out
+
+
+@pytest.mark.cuda
+def test_teatgt_eigh_on_the_card_matches_cpu_float64(cuda_device):
+    """The relation stage's eigendecomposition on the card (float64: see
+    ``vidsgg_torch/models/teatgt.py``) against float64 on the CPU:
+    eigenvalues and cluster projectors at atol 1e-8, padding rows zero."""
+    from vidsgg_torch.ops import masked_laplacian_eig
+
+    adj, mask = _clip_graphs()
+    val64, vec64 = masked_laplacian_eig(adj.double(), mask)
+    val, vec = masked_laplacian_eig(adj.double().to(cuda_device), mask.to(cuda_device))
+    val, vec = val.cpu(), vec.cpu()
+    for b in range(adj.shape[0]):
+        nv = int(mask[b].sum())
+        assert torch.allclose(val[b, :nv], val64[b, :nv], rtol=0, atol=1e-8)
+    want = _cluster_projectors(val64, vec64, mask)
+    got = {k: vec[k[0]][:, k[1]:k[2]] @ vec[k[0]][:, k[1]:k[2]].T for k in want}
+    assert any(j - i > 1 for (_, i, j) in want)          # repeated eigenvalues present
+    for k in want:
+        assert torch.allclose(got[k], want[k], rtol=0, atol=1e-8), k
+    assert not vec[~mask].any()
+
+
+@pytest.mark.cuda
+def test_teatgt_predcls_card_float32_matches_cpu_float64(cuda_device, gt_models):
+    """A small GT-box video through a small TEAT-GT: float32 on the card
+    against float64 on the CPU, the CPU's eigenvectors injected into the
+    card's run after its adjacency is checked equal: discrete outputs exact,
+    floats at atol 1e-4 x max(1, max|ref|)."""
+    import copy
+
+    from vidsgg_torch.data import EntryCapacity
+    from vidsgg_torch.detector import GtFrontend
+    from vidsgg_torch.models import TeatGT, TeatGTConfig
+    from vidsgg_torch.models import teatgt as tteatgt
+    from vidsgg_torch.models.graph_build import ClipCaps
+    from vidsgg_torch.serving_setup import gt_video, make_frames
+    from vidsgg_torch.train import EvalPipeline, create_serving_state
+
+    det, _ = gt_models
+    f, h, w = 6, 160, 256
+    cap = EntryCapacity(f, 4 * f, 3 * f)
+    frames = make_frames(3, f, h, w, "cpu")
+    _, skeleton = gt_video(5, "predcls", "cpu", cap=cap, num_frames=f, im_scale=w / 480)
+    cfg = TeatGTConfig.for_mode("predcls", encoder_layers=2, encoder_attention_heads=4,
+                                encoder_embed_dim=32, encoder_ffn_embed_dim=48,
+                                caps=ClipCaps(5, 2, 24, 96, 8))
+    rel = TeatGT(cfg, device="cpu", generator=torch.Generator().manual_seed(4)).double()
+    eig = tteatgt.masked_laplacian_eig
+    recorded, preds = [], []
+
+    def record(adj, mask):
+        out = eig(adj, mask)
+        recorded.append((adj.clone(), out))
+        return out
+
+    def replay(adj, mask):
+        want_adj, (val, vec) = recorded.pop(0)
+        assert torch.equal(adj.cpu(), want_adj)
+        return val.to(adj.device), vec.to(adj.device)
+
+    card = (copy.deepcopy(det).to(cuda_device, torch.float32),
+            copy.deepcopy(rel).to(cuda_device, torch.float32))
+    try:
+        for dev, (d, r), fn in (("cpu", (det, rel), record), (cuda_device, card, replay)):
+            tteatgt.masked_laplacian_eig = fn
+            entry, fmaps = GtFrontend(d)(frames.to(dev), skeleton.to(dev))
+            pipe = EvalPipeline("predcls", cap, needs_union=False, device=dev)
+            preds.append(pipe(create_serving_state(r), entry, fmaps, gt_entry=entry))
+    finally:
+        tteatgt.masked_laplacian_eig = eig
+    assert not recorded
+    want, got = preds
+    assert len(want["pair_idx"]) > 0
+    for k in ("labels", "im_idx", "pair_idx", "pred_labels"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for k in ("boxes", "attention_distribution", "spatial_distribution",
+              "contacting_distribution"):
+        scale = max(1.0, float(np.abs(want[k]).max()))
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-4 * scale, err_msg=k)

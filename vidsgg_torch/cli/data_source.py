@@ -20,6 +20,7 @@ capacity, are counted as skipped, never dropped silently.
 from __future__ import annotations
 
 import dataclasses
+import sys
 
 import numpy as np
 import torch
@@ -32,8 +33,8 @@ from vidsgg_torch.detector.checkpoint import load_faster_rcnn_checkpoint
 from vidsgg_torch.device import resolve_device
 
 # what is not ported yet, by ROADMAP.md queue 1 item
-PAIRED_SERVING = "ROADMAP.md queue 1 item 7 (paired and data-parallel serving)"
-TRAINING = "ROADMAP.md queue 1 item 5 (training)"
+PAIRED_SERVING = "ROADMAP.md queue 1 item 7b (paired and data-parallel serving)"
+TRAINING = "ROADMAP.md queue 1 item 5b (sgdet training)"
 
 
 @dataclasses.dataclass
@@ -214,6 +215,58 @@ def make_ag_source(dataset, buckets: list[EntryCapacity], detector: FasterRCNN,
 
     source.stats = stats
     return source
+
+
+def device_count(device) -> int:
+    """Devices of ``device``'s type that serving could shard over: the
+    CUDA cards, or one CPU."""
+    return torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
+
+
+def setup_serve_mesh(data_parallel: int, pair_detect: int, max_videos=None, device=None):
+    """sgdet serving setup shared by the test CLIs, as ``vidsgg``'s: returns
+    ``(None, pair_detect)`` wherever ``vidsgg`` serves on one device, with
+    its NOTEs: ``--max_videos`` disables sharding (pairing reorders videos,
+    so exact first-N truncation is only well-defined unpaired), and fewer
+    devices than requested prints the count. Exits where ``vidsgg`` would
+    shard (more than one device after the count): not ported yet."""
+    if data_parallel <= 1:
+        return None, pair_detect
+    if max_videos is not None:
+        print("NOTE: --max_videos disables --data_parallel serving "
+              "(exact truncation)")
+        return None, pair_detect
+    n = min(data_parallel, device_count(resolve_device(device)))
+    if n < data_parallel:
+        print(f"NOTE: only {n} devices available; "
+              f"--data_parallel {data_parallel} -> {n}")
+    if n <= 1:
+        return None, pair_detect
+    sys.exit(f"--data_parallel {data_parallel}: sgdet serving sharded over {n} devices "
+             f"is not ported to vidsgg_torch yet: {PAIRED_SERVING}")
+
+
+def resolve_serving_flags(cfg, max_videos, device, prog: str):
+    """The test CLIs' handling of ``--max_videos``, ``--pair_detect`` and
+    ``--data_parallel`` (``vidsgg/cli/tempura_test.py:42-61``): the same
+    NOTEs and, where ``vidsgg`` serves on one device, the same single-device
+    serving (``cfg.pair_detect`` is updated in place). Exits where
+    ``vidsgg`` would pair or shard sgdet serving, which is not ported."""
+    if max_videos is not None and cfg.pair_detect > 1:
+        # pairing reorders videos (groups flush when filled) and advances
+        # in group steps, so an exact first-N truncation is only
+        # well-defined unpaired
+        print("NOTE: --max_videos disables --pair_detect (exact truncation)")
+        cfg.pair_detect = 1
+    if cfg.mode == "sgdet":
+        _, cfg.pair_detect = setup_serve_mesh(cfg.data_parallel, cfg.pair_detect,
+                                              max_videos, device)
+        if cfg.pair_detect > 1:
+            sys.exit(f"{prog}: --pair_detect {cfg.pair_detect} (paired sgdet serving) is not "
+                     f"ported to vidsgg_torch yet: {PAIRED_SERVING}")
+    elif cfg.data_parallel > 1:
+        print("NOTE: --data_parallel shards sgdet serving only on the "
+              "test CLI (predcls/sgcls eval is single-device here)")
 
 
 def build_detector(model_path: str | None = None, tiny: bool = False,

@@ -1,5 +1,5 @@
-"""Small helper for the CLIs' pre-config flag scan (the port's own copy of
-``vidsgg/cli/flags.py``).
+"""Small helpers for the CLIs' pre-config flag scan (the port's own copy of
+``vidsgg/cli/flags.py``, plus the refusal of flags not ported yet).
 
 The train/test CLIs peel a few runner-level flags (``--synthetic``,
 ``--ckpt``, ``--profile``, ...) off argv before handing the rest to the
@@ -37,3 +37,11 @@ def take_switch(argv: list, flag: str) -> bool:
         argv.remove(flag)
         return True
     return False
+
+
+def refuse_unported(prog: str, unported):
+    """Exit with a one-line message for the first (given, flag, item) the
+    port cannot honour yet, rather than ignore it."""
+    for given, flag, item in unported:
+        if given:
+            sys.exit(f"{prog}: {flag} is not ported to vidsgg_torch yet: {item}")

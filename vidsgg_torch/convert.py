@@ -135,6 +135,28 @@ def _vr_fc_weight(kernel):
     return k.reshape(7, 7, 256, o).transpose(3, 2, 0, 1).reshape(o, 256 * 7 * 7)
 
 
+def _object_classifier(sd, p, s, tracking, obj_head, k):
+    """OSPU (``object_classifier.*``, the same layout in TEMPURA and TEAT-GT);
+    every tracking layer of the tree."""
+    oc, ocs = p["object_classifier"], s["object_classifier"]
+    pre = "object_classifier"
+    if tracking:
+        sd[f"{pre}.positional_encoder.pe"] = _a(ocs["pe_table"])[None]
+        for i in range(sum(name.startswith("track_") for name in oc)):
+            _encoder_layer(sd, f"{pre}.encoder_tran.layers.{i}", oc[f"track_{i}"])
+    sd[f"{pre}.obj_embed.weight"] = _a(oc["obj_embed"])
+    _norm(sd, f"{pre}.pos_embed.0", oc["pos_bn"], ocs["pos_bn"])
+    _linear(sd, f"{pre}.pos_embed.1", oc["pos_fc"])
+    _linear(sd, f"{pre}.intermediate.0", oc["inter_fc"])
+    _norm(sd, f"{pre}.intermediate.1", oc["inter_bn"], ocs["inter_bn"])
+    if "memory" in oc:
+        _memory(sd, pre, oc["memory"])
+    if obj_head == "gmm":
+        _gmm_head(sd, f"{pre}.decoder_lin", oc["decoder"], k)
+    else:
+        _linear(sd, f"{pre}.decoder_lin.0", oc["decoder"])
+
+
 def tempura_from_jax(variables, cfg) -> dict:
     """``vidsgg.models.tempura.Tempura`` variables -> the port's
     :class:`~vidsgg_torch.models.tempura.Tempura` state_dict for ``cfg``."""
@@ -171,23 +193,44 @@ def tempura_from_jax(variables, cfg) -> dict:
             _linear(sd, torch_name, p[ours])
 
     if cfg.mode != "predcls":
-        oc, ocs = p["object_classifier"], s["object_classifier"]
-        pre = "object_classifier"
-        if cfg.tracking:
-            sd[f"{pre}.positional_encoder.pe"] = _a(ocs["pe_table"])[None]
-            for i in range(cfg.track_layers):
-                _encoder_layer(sd, f"{pre}.encoder_tran.layers.{i}", oc[f"track_{i}"])
-        sd[f"{pre}.obj_embed.weight"] = _a(oc["obj_embed"])
-        _norm(sd, f"{pre}.pos_embed.0", oc["pos_bn"], ocs["pos_bn"])
-        _linear(sd, f"{pre}.pos_embed.1", oc["pos_fc"])
-        _linear(sd, f"{pre}.intermediate.0", oc["inter_fc"])
-        _norm(sd, f"{pre}.intermediate.1", oc["inter_bn"], ocs["inter_bn"])
-        if "memory" in oc:
-            _memory(sd, pre, oc["memory"])
-        if cfg.obj_head == "gmm":
-            _gmm_head(sd, f"{pre}.decoder_lin", oc["decoder"], cfg.k)
-        else:
-            _linear(sd, f"{pre}.decoder_lin.0", oc["decoder"])
+        _object_classifier(sd, p, s, cfg.tracking, cfg.obj_head, cfg.k)
+    return _to_torch(sd)
+
+
+def teatgt_from_jax(variables, cfg) -> dict:
+    """``vidsgg.models.teatgt.TeatGT`` variables -> the port's
+    :class:`~vidsgg_torch.models.teatgt.TeatGT` state_dict for ``cfg``
+    (the inverse of ``vidsgg/models/convert_teatgt.py``; the gate of
+    ``gap_gru`` is written under both of its names)."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd: dict = {}
+    _linear(sd, "subj_fc", p["subj_fc"])
+    _linear(sd, "obj_fc", p["obj_fc"])
+    sd["node_label_tokenizer.weight"] = _a(p["node_label_tokenizer"])
+
+    tg = p["tokengt"]
+    gf = "TokenGT_encoder.graph_encoder.graph_feature"
+    _linear(sd, f"{gf}.atom_encoder", tg["atom_encoder"])
+    for name in ("temp_encoder", "edge_encoder", "order_encoder", "graph_token", "null_token"):
+        sd[f"{gf}.{name}.weight"] = _a(tg[name])
+    _linear(sd, f"{gf}.lap_encoder", tg["lap_encoder"])
+    for i in range(cfg.encoder_layers):
+        lp, layer = f"TokenGT_encoder.graph_encoder.layers.{i}", tg[f"layer_{i}"]
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _linear(sd, f"{lp}.self_attn.{proj}", layer["MultiheadAttention_0"][proj])
+        _norm(sd, f"{lp}.self_attn_layer_norm", layer["LayerNorm_0"])
+        _norm(sd, f"{lp}.final_layer_norm", layer["LayerNorm_1"])
+        _linear(sd, f"{lp}.feedforward.fc1", layer["Dense_0"])
+        _linear(sd, f"{lp}.feedforward.fc2", layer["Dense_1"])
+    _linear(sd, "TokenGT_encoder.lm_head_transform_weight", tg["lm_head_transform_weight"])
+    _norm(sd, "TokenGT_encoder.layer_norm", tg["lm_head_ln"])
+    _linear(sd, "TokenGT_encoder.embed_out", tg["embed_out"])
+    sd["TokenGT_encoder.lm_output_learned_bias"] = _a(tg["lm_output_bias"])
+    for name in ("gate_gru_nn", "gap_gru.gate_nn"):
+        _linear(sd, name, p["gap_gru"]["gate_nn"])
+
+    if cfg.mode != "predcls":
+        _object_classifier(sd, p, s, cfg.tracking, "linear", 4)
     return _to_torch(sd)
 
 

@@ -4,7 +4,9 @@ Semantics of ``torch.nn.MultiheadAttention`` (packed q/k/v in-projection,
 scaled dot product, softmax over allowed keys, out-projection) with the
 masking written out: a fully masked row gives all-zero weights, where
 ``F.scaled_dot_product_attention`` gives NaN. Parameter names are
-``nn.MultiheadAttention``'s, so reference checkpoints load as they are.
+``nn.MultiheadAttention``'s, so reference checkpoints load as they are;
+:class:`SeparateProjAttention` is the same attention in fairseq's layout
+(TokenGT's).
 """
 
 from __future__ import annotations
@@ -66,3 +68,37 @@ class MultiheadAttention(nn.Module):
         out = torch.matmul(masked_softmax(scores, attn_mask), vh)
         out = out.transpose(-3, -2).reshape(q.shape[:-1] + (d,))
         return self.out_proj(out)
+
+
+class SeparateProjAttention(nn.Module):
+    """The same attention with fairseq's layout: separate ``q_proj``,
+    ``k_proj``, ``v_proj`` and ``out_proj`` Linears (TokenGT's
+    ``self_attn``, tokengt_graph_encoder_layer.py:61-95). Scores are divided
+    by sqrt(head_dim) after the product, as ``vidsgg``'s. Inference only."""
+
+    def __init__(self, embed_dim: int, num_heads: int):
+        super().__init__()
+        if embed_dim % num_heads:
+            raise ValueError("embed_dim must be divisible by num_heads")
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.q_proj = nn.Linear(embed_dim, embed_dim)
+        self.k_proj = nn.Linear(embed_dim, embed_dim)
+        self.v_proj = nn.Linear(embed_dim, embed_dim)
+        self.out_proj = nn.Linear(embed_dim, embed_dim)
+
+    def forward(self, x, attn_mask=None):
+        """x: [..., T, D]; attn_mask broadcastable to [..., Tq, Tk] (shared
+        by every head) or [..., H, Tq, Tk]."""
+        d, h = self.embed_dim, self.num_heads
+        hd = d // h
+
+        def split(t):  # [..., T, D] -> [..., H, T, hd]
+            return t.reshape(t.shape[:-1] + (h, hd)).transpose(-3, -2)
+
+        qh, kh, vh = split(self.q_proj(x)), split(self.k_proj(x)), split(self.v_proj(x))
+        scores = torch.matmul(qh, kh.transpose(-1, -2)) / math.sqrt(hd)
+        if attn_mask is not None and attn_mask.dim() == scores.dim() - 1:
+            attn_mask = attn_mask[..., None, :, :]
+        out = torch.matmul(masked_softmax(scores, attn_mask), vh)
+        return self.out_proj(out.transpose(-3, -2).reshape(x.shape[:-1] + (d,)))

@@ -15,6 +15,11 @@ weights (no checkpoint ships), 16-frame 608x1008 videos made from a seed.
   48)`` (the first of ``vidsgg``'s default buckets, which such a video
   fills exactly); sgcls also gets the detector-style class distribution of
   that source (seeded logits, +4 on the GT class, softmax, masked).
+* TEAT-GT at its published widths (predcls 12 layers x 32 heads, sgcls and
+  sgdet 6 x 16 with tracking; d = 768, FFN 768, Laplacian node ids k = 50)
+  through ``EvalPipeline(mode, cap, needs_union=False)``: the GT-box videos
+  with the test CLI's synthetic clip caps (``vidsgg/cli/teatgt_test.py:59``),
+  sgdet with the caps its Action Genome source gives a 16-frame bucket.
 """
 
 from __future__ import annotations
@@ -24,9 +29,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from vidsgg_torch.cli.teatgt_test import SYNTHETIC_CLIPS, ag_clip_caps
 from vidsgg_torch.data import EntryCapacity, build_gt_entry, synthetic_video_annotation
 from vidsgg_torch.detector import FasterRCNN, GtFrontend, SgdetCaps, SgdetFrontend
-from vidsgg_torch.models import Tempura, TempuraConfig
+from vidsgg_torch.models import TeatGT, TeatGTConfig, Tempura, TempuraConfig
 from vidsgg_torch.train import EvalPipeline, create_serving_state
 
 FRAMES, H, W = 16, 608, 1008
@@ -44,6 +50,11 @@ GT_IMAGE_WH = (480, 270)
 GT_IM_SCALE = 1000.0 / 480.0
 GT_CAP = EntryCapacity(FRAMES, FRAMES * (1 + GT_OBJS_PER_FRAME), 48)
 GT_LABEL_BIAS = 4.0
+
+# TEAT-GT's clip capacities: the test CLI's for its synthetic source (GT-box
+# videos), and for an Action Genome bucket of 16 frames (sgdet)
+TEATGT_GT_CLIPS = SYNTHETIC_CLIPS
+TEATGT_SGDET_CLIPS = ag_clip_caps(FRAMES)
 
 
 def make_frames(seed: int, frames: int, h: int, w: int, device) -> torch.Tensor:
@@ -79,6 +90,13 @@ def build_relation(mode: str, device=None) -> Tempura:
     return Tempura(cfg, device=device, generator=torch.Generator().manual_seed(1))
 
 
+def build_teatgt(mode: str, device=None) -> TeatGT:
+    """Full-width TEAT-GT for ``mode`` at the clip caps above, from seed 2."""
+    caps = TEATGT_SGDET_CLIPS if mode == "sgdet" else TEATGT_GT_CLIPS
+    return TeatGT(TeatGTConfig.for_mode(mode, caps=caps), device=device,
+                  generator=torch.Generator().manual_seed(2))
+
+
 def build_models(device=None, mode: str = "sgdet"):
     """Full-width FasterRCNN (ResNet-101, RPN 6000/100@0.7) from seed 0 and
     :func:`build_relation`'s TEMPURA. For sgdet the detector's heads are
@@ -92,17 +110,20 @@ def build_models(device=None, mode: str = "sgdet"):
     return det, rel
 
 
-def build_pipeline(det: FasterRCNN, rel: Tempura, mode: str = "sgdet"):
-    """(frontend, EvalPipeline(mode), ServingState). sgdet: an
-    ``SgdetFrontend`` at ``EntryCapacity(16, 256, 48)`` and 32 union pairs
-    per frame; predcls and sgcls: a :class:`GtFrontend` at ``GT_CAP``."""
+def build_pipeline(det: FasterRCNN, rel, mode: str = "sgdet"):
+    """(frontend, EvalPipeline(mode), ServingState) for TEMPURA or TEAT-GT
+    (``needs_union=False``). sgdet: an ``SgdetFrontend`` at
+    ``EntryCapacity(16, 256, 48)`` and 32 union pairs per frame; predcls and
+    sgcls: a :class:`GtFrontend` at ``GT_CAP``."""
+    needs_union = not isinstance(rel, TeatGT)
     if mode == "sgdet":
         cap = EntryCapacity(FRAMES, FRAMES * DETS, 48)
         front = SgdetFrontend(det, SgdetCaps(dets_per_frame=DETS), cap, device=det.device)
-        pipe = EvalPipeline("sgdet", cap, union_pairs_per_frame=2 * DETS, device=det.device)
+        pipe = EvalPipeline("sgdet", cap, needs_union=needs_union,
+                            union_pairs_per_frame=2 * DETS, device=det.device)
     else:
         front = GtFrontend(det)
-        pipe = EvalPipeline(mode, GT_CAP, device=det.device)
+        pipe = EvalPipeline(mode, GT_CAP, needs_union=needs_union, device=det.device)
     return front, pipe, create_serving_state(rel)
 
 

@@ -14,6 +14,10 @@
   overflow): OSPU classify -> NumPy postprocess -> repacked Entry -> union
   ROIAlign -> relation forward.
 
+With ``needs_union=False`` (TEAT-GT, which reads object features and
+pairs only) no stage pools union features, and sgdet's overflow comes from
+its postprocess alone.
+
 The result is an evaluator-ready NumPy pred dict.
 """
 
@@ -53,30 +57,34 @@ def _classify_stage(state: ServingState, entry: Entry):
         entry, obj_memory=state.obj_memory, mem_active=state.mem_active)
 
 
-def _relation_stage(state: ServingState, entry: Entry, obj_mem_features, fmaps):
-    entry = featurize_pair_entry(entry, fmaps)
+def _relation_stage(state: ServingState, entry: Entry, obj_mem_features, fmaps,
+                    needs_union: bool):
+    if needs_union:
+        entry = featurize_pair_entry(entry, fmaps)
     out = state.model.relation_forward(
         entry, obj_mem_features, rel_memory=state.rel_memory,
         mem_active=state.mem_active)
     return entry, out
 
 
-def _sgcls_fused(state: ServingState, entry: Entry, fmaps):
+def _sgcls_fused(state: ServingState, entry: Entry, fmaps, needs_union: bool):
     """The whole sgcls test step on the device -> (entry2, out)."""
     with record_function("vidsgg.classify"):
         aux = _classify_stage(state, entry)
     with record_function("vidsgg.postprocess"):
         entry2 = sgcls_postprocess_device(entry, aux["distribution"])
-    with record_function("vidsgg.union_features"):
-        entry2 = featurize_pair_entry(entry2, fmaps)
+    if needs_union:
+        with record_function("vidsgg.union_features"):
+            entry2 = featurize_pair_entry(entry2, fmaps)
     with record_function("vidsgg.relation_forward"):
         out = state.model.relation_forward(
-            entry2, aux["object_mem_features"], rel_memory=state.rel_memory,
+            entry2, aux.get("object_mem_features"), rel_memory=state.rel_memory,
             mem_active=state.mem_active)
     return entry2, out
 
 
-def _sgdet_fused(state: ServingState, entry: Entry, fmaps, union_ppf: int):
+def _sgdet_fused(state: ServingState, entry: Entry, fmaps, union_ppf: int,
+                 needs_union: bool):
     """The whole sgdet test step on the device. Returns (entry2, out,
     overflow); the caller re-runs the exact host path on overflow."""
     with record_function("vidsgg.classify"):
@@ -84,15 +92,17 @@ def _sgdet_fused(state: ServingState, entry: Entry, fmaps, union_ppf: int):
     with record_function("vidsgg.postprocess"):
         entry2, mem2, overflow = sgdet_postprocess_device(
             entry, aux["distribution"], aux["object_mem_features"])
-    with record_function("vidsgg.union_features"):
-        union_feat, _, spatial_masks, u_ovf = pair_union_features_grouped(
-            entry2, fmaps, union_ppf)
-    entry2 = dataclasses.replace(entry2, union_feat=union_feat,
-                                 spatial_masks=spatial_masks)
+    if needs_union:
+        with record_function("vidsgg.union_features"):
+            union_feat, _, spatial_masks, u_ovf = pair_union_features_grouped(
+                entry2, fmaps, union_ppf)
+        entry2 = dataclasses.replace(entry2, union_feat=union_feat,
+                                     spatial_masks=spatial_masks)
+        overflow = overflow | u_ovf
     with record_function("vidsgg.relation_forward"):
         out = state.model.relation_forward(
             entry2, mem2, rel_memory=state.rel_memory, mem_active=state.mem_active)
-    return entry2, out, overflow | u_ovf
+    return entry2, out, overflow
 
 
 def _pad_rows(arr: np.ndarray, cap: int) -> np.ndarray:
@@ -142,6 +152,8 @@ def _rebuild_entry(entry: Entry, o: ObjectsView, human_idx, im_idx, pairs,
 class EvalPipeline:
     mode: str
     cap: EntryCapacity
+    # False for TEAT-GT: no union features are pooled
+    needs_union: bool = True
     # sgcls and sgdet relabel on the device; False takes the host path
     device_postprocess: bool = True
     # per-frame pair bound of sgdet's grouped union pooling; the sgdet
@@ -166,7 +178,7 @@ class EvalPipeline:
           entry: featurized entry (GT boxes for predcls/sgcls; detector
             output for sgdet).
           fmaps: [F, H, W, 1024] base feature maps for union re-pooling
-            (unused in predcls).
+            (unused in predcls and with ``needs_union=False``).
           gt_entry: the GT entry whose predicate lists the pred dict carries
             in the original GT pair order (sgcls, sgdet).
         """
@@ -174,14 +186,16 @@ class EvalPipeline:
         if self.mode == "predcls":
             self.last_route = "device"
             return to_eval_pred(entry, _predcls_stage(state, entry), "predcls")
-        fmaps = torch.as_tensor(fmaps, device=self.device)
+        if self.needs_union:
+            fmaps = torch.as_tensor(fmaps, device=self.device)
         if self.device_postprocess:
             if self.mode == "sgcls":
-                entry2, out = _sgcls_fused(state, entry, fmaps)
+                entry2, out = _sgcls_fused(state, entry, fmaps, self.needs_union)
                 overflow = False
             else:
                 entry2, out, overflow = _sgdet_fused(state, entry, fmaps,
-                                                     self.union_pairs_per_frame)
+                                                     self.union_pairs_per_frame,
+                                                     self.needs_union)
             if not bool(overflow):
                 self.last_route = "device"
                 return self._attach_gt(to_eval_pred(entry2, out, self.mode), gt_entry)
@@ -208,7 +222,7 @@ class EvalPipeline:
         eval_cap = EntryCapacity(self.cap.max_frames, self.cap.max_objs,
                                  max(self.cap.max_objs, self.cap.max_pairs))
         entry2, mem = _rebuild_entry(entry, o, human_idx, im_idx, pairs, eval_cap)
-        entry2, out = _relation_stage(state, entry2, mem, fmaps)
+        entry2, out = _relation_stage(state, entry2, mem, fmaps, self.needs_union)
         return self._attach_gt(to_eval_pred(entry2, out, self.mode), gt_entry)
 
     @staticmethod

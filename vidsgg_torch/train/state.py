@@ -1,7 +1,8 @@
 """Serving state: the relation model plus its memory banks.
 
 Counterpart of the serving fields of ``vidsgg/train/state.py``: the
-relation memory (``rel_memory`` [26, 1936], [attention; spatial;
+relation model (TEMPURA, or TEAT-GT, which reads no memory), the relation
+memory (``rel_memory`` [26, 1936], [attention; spatial;
 contacting] rows), the object memory (``obj_memory`` [C-1, D]) and
 ``mem_active``, which gates the hallucinators until the banks are filled.
 """
@@ -11,28 +12,28 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch import nn
 
 from vidsgg_torch import constants as C
 from vidsgg_torch.models.ospu import OBJ_FEAT_DIM
-from vidsgg_torch.models.tempura import Tempura, TempuraConfig
 
 REL_FEATURE_DIM = 1936
 
 
-def obj_memory_dim(cfg: TempuraConfig) -> int:
+def obj_memory_dim(cfg) -> int:
     """2376 when tracking (memory attends pre-intermediate features), else 1024."""
     return OBJ_FEAT_DIM if cfg.tracking else 1024
 
 
 @dataclasses.dataclass
 class ServingState:
-    model: Tempura
+    model: nn.Module            # Tempura or TeatGT
     rel_memory: torch.Tensor
     obj_memory: torch.Tensor
     mem_active: torch.Tensor   # [] bool
 
 
-def create_serving_state(model: Tempura) -> ServingState:
+def create_serving_state(model: nn.Module) -> ServingState:
     """Empty banks (zeros) and ``mem_active`` False, on the model's device
     and in its dtype."""
     w = model.subj_fc.weight
