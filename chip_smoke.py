@@ -77,8 +77,19 @@ evaluator, and fails (nonzero exit, no result line) on any fault:
    history); the RPN conv alone by frame count; and the AG load (PNG
    decode, upload and resize) on its own, its frames on the card equal to
    the CPU's within 1e-4;
-10. a ``kernels`` JSON line (K1 and K2, launches per main path: TEMPURA's
-    and TEAT-GT's sgdet videos), then the result line.
+10. bfloat16 serving (``serve_bf16_phase``): TEMPURA sgdet on the serving
+    frames with ``bench.py``'s bfloat16 detector and with the float32 one
+    (what ``tempura_test --bf16`` serves), predcls and sgcls, and TEAT-GT
+    sgdet, each with the bfloat16 relation stack, one warm-up and three
+    timed videos each: ms per video, peak memory, NMS launches by dtype
+    (the RPN and class grid float32, the grouped call bfloat16, every call
+    bit-equal to its plain version on its own inputs), agreement with the
+    float32 run of the same video, R/mR in [0, 1]; the kernel phase also
+    times the bfloat16 grouped call, and the CLI phase runs
+    ``tempura_test --bf16`` in sgdet over its split;
+11. a ``kernels`` JSON line (K1 and K2, launches per main path: TEMPURA's
+    and TEAT-GT's sgdet videos, in float32 and in bfloat16; K1's calls
+    with the bfloat16 grouped call), then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -117,6 +128,7 @@ from vidsgg_torch.serving_setup import (
     GT_OBJS_PER_FRAME,
     H,
     W,
+    bf16_detector,
     build_models,
     build_pipeline,
     build_relation,
@@ -278,15 +290,21 @@ def mask_err(got: torch.Tensor, want: torch.Tensor, what: str) -> int:
     return err
 
 
-def grouped_inputs(det, rel, frames0, hw):
+def grouped_inputs(det, rel, frames0, hw, compute_dtype=None):
     """The grouped NMS's inputs on a served video, through the public
     functions the pipeline calls: frontend -> OSPU classify -> clean_class
-    -> (boxes4 [512, 4], scores, group, valid)."""
+    -> (boxes4 [512, 4], scores, group, valid); with ``compute_dtype`` the
+    relation stack's serving-precision copy on the entry cast as the
+    pipeline casts it."""
     from vidsgg_torch.models.postprocess_device import clean_class_objects, nms_problem
+    from vidsgg_torch.train.eval_pipeline import cast_floating, cast_state_for_serving
 
     front, _, state = build_pipeline(det, rel)
     with torch.inference_mode():
         entry, _ = front(frames0, hw, 1.0, video_size=(float(W), float(H)))
+        if compute_dtype is not None:
+            state = cast_state_for_serving(state, compute_dtype)
+            entry = cast_floating(entry, compute_dtype)
         aux = state.model.classify_objects(entry, obj_memory=state.obj_memory,
                                            mem_active=state.mem_active)
         fields, valid, frame, _ = clean_class_objects(entry, aux["distribution"],
@@ -468,6 +486,25 @@ def kernel_phase(det, rel, frames0, hw):
                            group_sorted=gg[order][None], item=gb.element_size()),
         shape=list(gv.shape))
 
+    # the bfloat16 route of the grouped call, on the same video served by
+    # the bfloat16 detector and the bfloat16 relation stack
+    det16 = bf16_detector(det)
+    hb, hs, hg, hv = grouped_inputs(det16, rel, frames0, hw, compute_dtype=torch.bfloat16)
+    del det16
+    keep16, rank16 = tnms.grouped_nms(hb, hs, hg, hv, 0.6)
+    want_keep, want_rank = tnms.grouped_nms_plain(hb, hs, hg, hv, 0.6)
+    max_err = max(max_err, mask_err(keep16, want_keep, "grouped bfloat16 keep"),
+                  mask_err(rank16, want_rank, "grouped bfloat16 rank"))
+    log(f"[kernel] grouped {list(hv.shape)} ({hb.dtype}) at 0.6 (bfloat16 0.6015625): keep "
+        f"and rank bit-equal, {int(hv.sum())} valid, {int(keep16.sum())} kept")
+    order = torch.argsort(rank16)
+    calls["grouped_bf16"] = dict(
+        run=lambda: tnms.grouped_nms(hb, hs, hg, hv, 0.6),
+        plain=lambda: tnms.grouped_nms_plain(hb, hs, hg, hv, 0.6),
+        bound=nms_bound_ms(keep16[order][None], hv[order][None], None, False,
+                           group_sorted=hg[order][None], item=hb.element_size()),
+        shape=list(hv.shape))
+
     err_k1, err_k2, names = edge_cases(rpn_b.device, grouped)
     log(f"[kernel] edge cases bit-equal: {', '.join(names)}")
     torch.cuda.synchronize()
@@ -645,6 +682,124 @@ def score_phase(mode: str, anns, preds):
     log(f"[score {mode}] {len(preds)} videos scored in {time.perf_counter() - t0:.2f} s "
         f"(random weights: the numbers show that the path runs, not accuracy)")
     return out
+
+
+# the bfloat16 builds (name, detector, mode, relation model): bench.py's
+# bfloat16 detector with the bfloat16 relation stack, and the float32
+# detector behind it, as tempura_test --bf16 serves
+BF16_BUILDS = (
+    ("tempura sgdet bf16 detector", "bf16", "sgdet", "tempura"),
+    ("tempura sgdet f32 detector", "f32", "sgdet", "tempura"),
+    ("tempura predcls", "bf16", "predcls", "tempura"),
+    ("tempura sgcls", "bf16", "sgcls", "tempura"),
+    ("teatgt sgdet", "bf16", "sgdet", "teatgt"),
+)
+# NMS kernel launches of one bfloat16 sgdet video, by contract and dtype:
+# the RPN and the class grid stay float32, the grouped call is bfloat16
+BF16_PATH_LAUNCHES = {"presorted float32": 1, "ranked float32": 1, "grouped bfloat16": 1}
+
+
+def f32_agreement(a: dict, b: dict) -> dict:
+    """A bfloat16 pred dict ``a`` against the float32 one ``b`` of the same
+    video: the share of equal ``pred_labels`` (over the shorter list) and,
+    where the pair lists agree, the largest |difference| of the three
+    distributions."""
+    n = min(len(a["pred_labels"]), len(b["pred_labels"]))
+    out = dict(objects=[len(a["pred_labels"]), len(b["pred_labels"])],
+               pairs=[len(a["pair_idx"]), len(b["pair_idx"])],
+               label_share=float(np.mean(a["pred_labels"][:n] == b["pred_labels"][:n]))
+               if n else None, max_abs_diff=None)
+    if a["pair_idx"].shape == b["pair_idx"].shape and np.array_equal(a["pair_idx"],
+                                                                     b["pair_idx"]):
+        out["max_abs_diff"] = max(float(np.abs(a[k] - b[k]).max(initial=0.0)) for k in (
+            "attention_distribution", "spatial_distribution", "contacting_distribution"))
+    return out
+
+
+def serve_bf16_phase(det, sgdet_frames, f32_preds):
+    """bfloat16 serving at full width: each of ``BF16_BUILDS`` answers one
+    warm-up and N_VIDEOS timed videos (the frames and GT-box videos of the
+    float32 phases); per build ms per video, peak memory, NMS launches by
+    dtype (the grouped call in bfloat16, every call of every sgdet video
+    bit-equal to its plain version on its own inputs), agreement with the
+    float32 run of the same video, and R/mR in [0, 1]."""
+    from vidsgg_torch.ops.nms import NMS_KERNEL
+
+    det16 = bf16_detector(det)
+    dets = {"bf16": det16, "f32": det}
+    runs, scores = {}, {}
+    for name, which, mode, model in BF16_BUILDS:
+        t0 = time.perf_counter()
+        rel = (build_relation if model == "tempura" else build_teatgt)(mode, det.device)
+        front, pipe, state = build_pipeline(dets[which], rel, mode,
+                                            compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        log(f"[bf16 {name}] {which} detector, bfloat16 relation stack; built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        sgdet = mode == "sgdet"
+        video_size = (float(W), float(H)) if sgdet else (float(GT_IMAGE_WH[0]),
+                                                         float(GT_IMAGE_WH[1]))
+        want = BF16_PATH_LAUNCHES if sgdet else {}
+        rows, preds, anns = [], [], []
+        for i, seed in enumerate(GT_SEEDS):
+            ann = synthetic_video_annotation(num_frames=FRAMES, objs_per_frame=GT_OBJS_PER_FRAME,
+                                             image_wh=GT_IMAGE_WH, stable=True, seed=seed)
+            if not sgdet:
+                ann, skeleton = gt_video(seed, mode, det.device)
+                frames = make_frames(seed, FRAMES, H, W, det.device)
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            calls = []
+            torch.cuda.synchronize()
+            NMS_KERNEL.reset_counts()
+            with recording_nms_calls(calls) if sgdet else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                if sgdet:
+                    entry, fmaps = front(sgdet_frames[i], (float(H), float(W)), 1.0,
+                                         video_size=video_size)
+                else:
+                    entry, fmaps = front(frames, skeleton)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                pred = pipe(state, entry, fmaps, gt_entry=None if sgdet else entry)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+            by = dict(NMS_KERNEL.launches_by_dtype)
+            n, p = check_pred(pred, video_size)
+            tag = "warm-up" if i == 0 else f"video {i}"
+            if by != want:
+                raise AssertionError(f"bf16 {name} {tag}: NMS launches {by}, want {want}")
+            if len(calls) != (3 if sgdet else 0):
+                raise AssertionError(f"bf16 {name} {tag}: {len(calls)} NMS calls recorded")
+            shapes = check_recorded_nms(calls, f"bf16 {name}", tag) if calls else []
+            if sgdet and calls[2]["args"][0].dtype != torch.bfloat16:
+                raise AssertionError(f"bf16 {name} {tag}: grouped NMS on "
+                                     f"{calls[2]['args'][0].dtype}")
+            row = dict(ms=1e3 * (t2 - t0), front_ms=1e3 * (t1 - t0),
+                       relation_ms=1e3 * (t2 - t1), objects=n, pairs=p, route=pipe.last_route,
+                       launches=sum(by.values()), launches_by_dtype=by)
+            if i > 0:
+                row["vs_float32"] = f32_agreement(pred, f32_preds[(model, mode)][i - 1])
+                rows.append(row)
+                preds.append(pred)
+                anns.append(ann)
+            log(f"[bf16 {name}] {tag}: {row['ms']:.1f} ms (front {row['front_ms']:.1f}, "
+                f"relation {row['relation_ms']:.1f}), objects {n}, pairs {p}, route "
+                f"{pipe.last_route}, nms launches {by}"
+                + (f", every NMS call bit-equal to plain {shapes}" if shapes else "")
+                + (f", against float32: {json.dumps(row['vs_float32'])}" if i else ""))
+        peak = torch.cuda.max_memory_allocated()
+        mean = {k: sum(r[k] for r in rows) / len(rows) for k in ("ms", "front_ms", "relation_ms")}
+        log(f"[bf16 {name}] peak memory allocated {peak} bytes ({peak / 2**30:.2f} GiB); mean "
+            f"over timed videos: {json.dumps(mean)}")
+        runs[name] = dict(videos=rows, peak_memory_bytes=peak, mean=mean)
+        scores[name] = score_phase(mode, anns, preds)
+        del front, pipe, state, rel
+        torch.cuda.empty_cache()
+    del det16
+    torch.cuda.empty_cache()
+    return runs, scores
+
 
 
 def agree(a: dict, b: dict, what: str) -> float:
@@ -1328,6 +1483,47 @@ def cli_phase(det):
                     log(f"[cli {mode}] {line}")
             results[mode] = runs
 
+        # tempura_test --bf16 in sgdet on the same split, all four videos:
+        # the relation stack in bfloat16 behind the float32 detector, the
+        # grouped NMS through the kernel's bfloat16 route
+        n = CLI_VIDEOS + 1
+        calls = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        NMS_KERNEL.reset_counts()
+        with recording_nms_calls(calls):
+            evs, text, served, seconds = run_cli(argv("sgdet", "all", n) + ["--bf16"])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        by = dict(NMS_KERNEL.launches_by_dtype)
+        if served != n:
+            raise AssertionError(f"sgdet --bf16: evaluated {served} videos, want {n}")
+        if by != {k: v * n for k, v in BF16_PATH_LAUNCHES.items()}:
+            raise AssertionError(f"sgdet --bf16: NMS launches {by} for {n} videos")
+        bad = {f"{ev.constraint} {m}@{k}": f(k) for ev in evs for k in ev.KS
+               for m, f in (("R", ev.recall_at), ("mR", ev.mean_recall_at))
+               if not (np.isfinite(f(k)) and 0 <= f(k) <= 1)}
+        if bad:
+            raise AssertionError(f"sgdet --bf16: R/mR outside [0, 1]: {bad}")
+        grouped = [c for c in calls if c["call"] == "grouped"]
+        if len(calls) != 3 * n or any(c["args"][0].dtype != torch.bfloat16 for c in grouped):
+            raise AssertionError(f"sgdet --bf16: recorded {len(calls)} NMS calls, grouped "
+                                 f"dtypes {[c['args'][0].dtype for c in grouped]}")
+        shapes = check_recorded_nms(calls, "sgdet --bf16", "all")
+        del calls
+        results["sgdet --bf16"] = dict(
+            videos=n, seconds=seconds, ms_per_video=1e3 * seconds / n,
+            peak_memory_bytes=peak, own_peak_bytes=peak - before, nms_launches=by,
+            nms_calls_bit_equal=shapes, r20={ev.constraint: ev.recall_at(20) for ev in evs})
+        log(f"[cli sgdet --bf16] all: {n} videos in {seconds:.3f} s "
+            f"({1e3 * seconds / n:.1f} ms per video), own peak {peak - before} bytes "
+            f"({(peak - before) / 2**30:.2f} GiB), nms launches {by}, every NMS call "
+            f"bit-equal to the plain version on its own inputs")
+        for line in text.splitlines():
+            if re.match(r"^(R@20|mR@20)", line):
+                log(f"[cli sgdet --bf16] {line}")
+
         # teatgt_test on the same split: all four videos in one run a mode
         for mode in ("predcls", "sgcls", "sgdet"):
             want = PATH_LAUNCHES if mode == "sgdet" else {}
@@ -1425,7 +1621,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the card only", file=sys.stderr)
         return 2
-    name, count, _ = device_phase()
+    device_name, count, _ = device_phase()
     build_phase()
 
     t0 = time.perf_counter()
@@ -1443,9 +1639,12 @@ def main() -> int:
     del rel
     torch.cuda.empty_cache()
     gt_runs, scores = {}, {}
+    # the float32 pred dicts of each timed video, for the bfloat16 phase
+    f32_preds = {("tempura", "sgdet"): sgdet_preds}
     for mode in GT_MODES:
         gt_runs[mode], preds, anns = serve_gt_phase(det, mode)
         scores[mode] = score_phase(mode, anns, preds)
+        f32_preds[("tempura", mode)] = preds
     # sgdet's frames are scored against the GT modes' timed annotations
     sgdet_anns = [synthetic_video_annotation(
         num_frames=FRAMES, objs_per_frame=GT_OBJS_PER_FRAME, image_wh=GT_IMAGE_WH,
@@ -1455,18 +1654,27 @@ def main() -> int:
     for mode in TEATGT_MODES:
         teatgt_runs[mode], preds, anns = serve_teatgt_phase(det, mode, videos)
         scores[f"teatgt {mode}"] = score_phase(mode, anns, preds)
+        f32_preds[("teatgt", mode)] = preds
+    bf16_runs, bf16_scores = serve_bf16_phase(det, videos, f32_preds)
+    scores.update({f"bf16 {k}": v for k, v in bf16_scores.items()})
+    del f32_preds
     reference_phase()
     # the CLI's peak memory counts only what the CLI holds besides the detector
     del videos
     torch.cuda.empty_cache()
     cli_phase(det)
-    # launches on the main paths: TEMPURA's and TEAT-GT's sgdet videos
+    # launches on the main paths: TEMPURA's and TEAT-GT's sgdet videos, in
+    # float32 and in bfloat16
     paths = {"tempura sgdet": rows, "teatgt sgdet": teatgt_runs["sgdet"]["videos"]}
-    launches = {k: sum(r["launches"] for r in v) for k, v in paths.items()}
+    bf16_paths = {f"bf16 {build}": bf16_runs[build]["videos"]
+                  for build, _, mode, _ in BF16_BUILDS if mode == "sgdet"}
+    launches = {k: sum(r["launches"] for r in v) for k, v in {**paths, **bf16_paths}.items()}
     ranked_launches = {k: sum(r["launches_by"].get("ranked", 0) for r in v)
                        for k, v in paths.items()}
+    ranked_launches.update({k: sum(r["launches_by_dtype"].get("ranked float32", 0) for r in v)
+                            for k, v in bf16_paths.items()})
 
-    def entry(name, replaces, call_names, launched, err):
+    def entry(name, replaces, call_names, launched, err, more_calls=()):
         sel = [timings[c] for c in call_names]
         return {
             "name": name,
@@ -1483,13 +1691,15 @@ def main() -> int:
             "bound_by": ("bytes" if all(t["bound_by"] == "bytes" for t in sel)
                          else "operations"),
             "library_ms": None,
-            "calls": {c: timings[c] for c in call_names},
+            # per call; the bfloat16 grouped call replaces the float32 one in
+            # bfloat16 serving, and is not in the sums above
+            "calls": {c: timings[c] for c in (*call_names, *more_calls)},
         }
 
     kernels = [
         # K1: the RPN call, the class grid and the relation stage's grouped NMS
         entry("nms_tile", "vidsgg/ops/pallas_nms.py:206", ["rpn", "grid", "grouped"],
-              launches, errs["k1"]),
+              launches, errs["k1"], more_calls=["grouped_bf16"]),
         # K2: its contract (ranking inside the call, no max_keep) is the grid call
         entry("nms_tile:ranked", "vidsgg/ops/pallas_nms.py:257", ["grid"],
               ranked_launches, errs["k2"]),
@@ -1500,9 +1710,12 @@ def main() -> int:
         log(f"[serve {mode}] " + json.dumps(gt_runs[mode]))
     for mode in TEATGT_MODES:
         log(f"[teatgt {mode}] " + json.dumps(teatgt_runs[mode]))
+    for build, run in bf16_runs.items():
+        log(f"[bf16 {build}] " + json.dumps(run))
     log("[score] " + json.dumps(scores))
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
+                                             "count": count}}),
           flush=True)
     return 0
 

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where one served sgdet video spends its time in the PyTorch/CUDA port.
 
-    python3 scripts/profile_torch_sgdet.py [--videos N] [--model teatgt]
+    python3 scripts/profile_torch_sgdet.py [--videos N] [--model teatgt] [--bf16]
 
 Builds the serving configuration of ``chip_smoke.py``
 (``vidsgg_torch.serving_setup``: ResNet-101 Faster R-CNN + TEMPURA, or
 TEAT-GT with ``--model teatgt``, seeded random weights, 16x608x1008
-frames, float32, TF32 off) on the CUDA card,
+frames, float32, TF32 off; with ``--bf16`` the bfloat16 detector and the
+bfloat16 relation stack, ``bench.py``'s serving precision) on the CUDA card,
 serves one warm-up video, then traces N videos with ``torch.profiler`` and
 prints, per video:
 
@@ -40,6 +41,7 @@ from vidsgg_torch.serving_setup import (  # noqa: E402
     FRAMES,
     H,
     W,
+    bf16_detector,
     build_models,
     build_pipeline,
     build_teatgt,
@@ -90,6 +92,8 @@ def main():
     ap.add_argument("--videos", type=int, default=2, help="videos in the trace")
     ap.add_argument("--model", choices=("tempura", "teatgt"), default="tempura",
                     help="the relation model")
+    ap.add_argument("--bf16", action="store_true",
+                    help="the bfloat16 detector and relation stack")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -104,7 +108,10 @@ def main():
     det, rel = build_models()
     if args.model == "teatgt":
         rel = build_teatgt("sgdet", det.device)
-    front, pipe, state = build_pipeline(det, rel)
+    dtype = torch.bfloat16 if args.bf16 else None
+    if args.bf16:
+        det = bf16_detector(det)
+    front, pipe, state = build_pipeline(det, rel, compute_dtype=dtype)
     videos = [make_frames(100 + i, FRAMES, H, W, "cuda") for i in range(args.videos + 1)]
     serve(front, pipe, state, videos[0])  # warm-up
     torch.cuda.synchronize()
@@ -139,7 +146,8 @@ def main():
     for name, ms, count in own:
         print(f"[own kernel] {ms:9.4f} ms  x{count:<7g} {name[:110]}", flush=True)
     print(json.dumps({
-        "device": smi, "model": args.model, "videos": args.videos, "wall_ms": wall_ms,
+        "device": smi, "model": args.model, "bf16": args.bf16, "videos": args.videos,
+        "wall_ms": wall_ms,
         "device_kernel_ms": device_ms, "busy_share": device_ms / wall_ms,
         "stages_ms": {k: dict(host=h, device=d) for k, (h, d) in stages.items()},
         "top_kernels": [dict(name=k[:200], ms=ms, count=c) for k, ms, c in kernels[:15]],

@@ -17,6 +17,9 @@ indices) exact, floats within 1e-4 x max(1, max|ref|), and sgdet's within
 box deltas, which amplifies the convolutions' 1e-4 relative difference.
 """
 
+import re
+
+import numpy as np
 import pytest
 import torch
 from cli_parity_utils import (
@@ -29,11 +32,12 @@ from cli_parity_utils import (
     stats,
     synthetic_head,
 )
-from torch_parity_utils import write_ag_tree
+from torch_parity_utils import assert_pred_equal, write_ag_tree
 
 import vidsgg_torch.cli.data_source as tds
 import vidsgg_torch.cli.tempura_test as tcli
 from vidsgg_torch.configs import TempuraRunConfig
+from vidsgg_torch.eval.adapter import BF16_FIELDS
 
 @pytest.fixture(scope="module")
 def ag_root(tmp_path_factory):
@@ -80,7 +84,6 @@ def test_cli_matches_vidsgg_on_synthetic_videos(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("flags", [
     ["--ckpt", "some/dir"],
     ["--ckpt_name", "best_recall"],
-    ["--bf16"],
     ["--int8"],
     ["--profile", "trace/"],
     ["--pair_detect", "2"],
@@ -95,6 +98,47 @@ def test_unported_flags_exit_nonzero(flags, capsys, monkeypatch):
     assert exc.value.code not in (0, None)
     assert "ROADMAP.md queue 1 item" in str(exc.value.code)
     assert flags[0] in str(exc.value.code)
+
+
+@pytest.mark.parametrize("mode", ["predcls", "sgdet"])
+def test_bf16_cli_matches_vidsgg(mode, tmp_path, monkeypatch, capsys):
+    """``--bf16``: the relation stack in bfloat16 behind the float32
+    detector in both CLIs. The same NOTEs and headline lines and video
+    counts; every video's pred dict holds bfloat16 values in the same
+    fields (``bf16_fields``) and has as many objects and pairs; in predcls,
+    whose objects and pairs are the GT's, every discrete output exact and
+    the floats within 2**-6 x max(1, max|ref|), four bfloat16 ulps at 1
+    (``test_torch_bf16_serving.py``). sgdet's OSPU scores differ from
+    ``vidsgg``'s by a bfloat16 ulp here and there, which reorders tied
+    objects through its NMS and sort. R@K and mR@K within 0.05: a rounding
+    that falls the other way moves a triplet across a K boundary, one or
+    two of the video's GT triplets (1/48 each in predcls)."""
+    argv = ["--mode", mode, "--synthetic", "1", "--bf16"] + TEMPURA_FLAGS
+    jax_evs, jax_out, jax_run = run_vidsgg_tempura(
+        monkeypatch, capsys, argv + ["--output_path", str(tmp_path / "jax")])
+    synthetic_head(monkeypatch)
+    port_evs, port_out, _, port_preds = run_port_tempura(
+        monkeypatch, capsys, argv + ["--output_path", str(tmp_path / "port")], jax_run)
+    want = jax_run["preds"]
+    assert len(port_preds) == len(want) == 1
+    got, want = dict(port_preds[0]), want[0]
+    floats = ("boxes", "scores", "pred_scores", "attention_distribution",
+              "spatial_distribution", "contacting_distribution")
+    assert got.pop(BF16_FIELDS) == tuple(k for k in floats if want[k].dtype.name == "bfloat16")
+    assert len(got["pred_labels"]) == len(want["pred_labels"]) > 0
+    assert len(got["pair_idx"]) == len(want["pair_idx"]) > 0
+    if mode == "predcls":
+        scale = max(1.0, max(float(np.abs(np.asarray(want[k], np.float64)).max())
+                             for k in floats))
+        assert_pred_equal(got, {k: np.asarray(v, np.float32) if k in floats else v
+                                for k, v in want.items()}, atol=2.0 ** -6 * scale)
+    for jev, tev in zip(jax_evs, port_evs, strict=True):
+        for k in jev.KS:
+            assert abs(tev.recall_at(k) - jev.recall_at(k)) <= 0.05
+            assert abs(tev.mean_recall_at(k) - jev.mean_recall_at(k)) <= 0.05
+    for pattern in (r"^evaluated (\d+) videos", r"^NOTE: .*$", r"^>>> .*$"):
+        assert re.findall(pattern, port_out, re.M) == re.findall(pattern, jax_out, re.M)
+    assert len(pickles(tmp_path / "port")) == len(pickles(tmp_path / "jax")) == 12
 
 
 def test_cli_runs_with_its_own_weights_on_the_cpu(tmp_path):

@@ -2,6 +2,12 @@
 PyTorch version on the same CUDA tensors, through all three of its call
 contracts (presorted with max_keep, ranked inside the call, grouped with
 ranks). Tolerance: exact (keep masks are booleans, ranks integers).
+The grouped contract's bfloat16 route likewise, bit for bit against the
+plain bfloat16 version (per-operation rounding, the threshold in bfloat16)
+on random, tied and near-threshold inputs, ranked in the kernel and past
+its 1024 (torch ranks). The bfloat16 detector on the card against the
+CPU's bfloat16 detector: base and head features within 2**-6 x max|ref|
+(cuDNN and oneDNN sum in other orders before each rounding to bfloat16).
 Then the predcls and sgcls paths: a small video served in float32 on the
 card against float64 on the CPU (discrete outputs exact), and the sgcls
 relabel on the card against its CPU run (bit for bit). Then TEAT-GT: the
@@ -110,6 +116,77 @@ def test_grouped_matches_plain(cuda_device, dtype, m, groups):
         order = torch.argsort(rank)
         ungrouped = tnms.nms_sorted_plain(b[order][None], v[order][None], 0.6)[0]
         assert torch.equal(keep[order], ungrouped)
+
+
+def _bf16_grouped_case(m, seed):
+    """bfloat16 boxes, scores tied on a coarse grid, and partners shifted
+    so that their bfloat16 IoU lands near bfloat16(0.6) = 0.6015625."""
+    rng = np.random.RandomState(seed)
+    xy = rng.uniform(0, 200, (m, 2))
+    wh = rng.uniform(20, 60, (m, 2))
+    boxes = np.concatenate([xy, xy + wh], 1)
+    for i in range(0, m - 1, 4):
+        w = boxes[i, 2] - boxes[i, 0] + 1
+        dx = w * 0.4 / 1.6 + rng.uniform(-1.5, 1.5)
+        boxes[i + 1] = boxes[i] + np.array([dx, 0, dx, 0])
+    scores = np.round(rng.rand(m) * 16) / 16
+    group = rng.randint(0, 4, m)
+    valid = rng.rand(m) < 0.9
+    return boxes, scores, group, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,seed", [(64, 0), (512, 1), (1024, 2), (1100, 3), (3000, 4)])
+def test_grouped_bf16_matches_plain(cuda_device, m, seed):
+    """The bfloat16 route: keep and rank bit-equal to the plain bfloat16
+    version on the card, below and above MAX_RANKED; IoUs at the rounded
+    threshold occur; the launch is counted as a bfloat16 one."""
+    boxes, scores, group, valid = _bf16_grouped_case(m, seed)
+    b, s = (torch.tensor(x, dtype=torch.bfloat16, device=cuda_device) for x in (boxes, scores))
+    g = torch.from_numpy(group).to(cuda_device)
+    v = torch.from_numpy(valid).to(cuda_device)
+    x1, y1, x2, y2 = b.unbind(-1)
+    iw = torch.minimum(x2[:, None], x2) - torch.maximum(x1[:, None], x1) + 1.0
+    ih = torch.minimum(y2[:, None], y2) - torch.maximum(y1[:, None], y1) + 1.0
+    area = (x2 - x1 + 1.0) * (y2 - y1 + 1.0)
+    inter = iw.clamp(min=0.0) * ih.clamp(min=0.0)
+    iou = inter / (area[:, None] + area - inter)
+    assert int((iou == 0.6015625).sum()) > 0
+    before = tnms.NMS_KERNEL.launches_by_dtype.get("grouped bfloat16", 0)
+    keep, rank = tnms.grouped_nms(b, s, g, v, 0.6)
+    torch.cuda.synchronize()
+    assert tnms.NMS_KERNEL.launches_by_dtype["grouped bfloat16"] == before + 1
+    want_keep, want_rank = tnms.grouped_nms_plain(b, s, g, v, 0.6)
+    assert torch.equal(keep, want_keep) and torch.equal(rank, want_rank)
+    assert 0 < int(keep.sum()) <= int(v.sum())
+    if m >= 512:
+        assert int(keep.sum()) < int(v.sum())
+
+
+@pytest.mark.cuda
+def test_bf16_detector_card_matches_cpu(cuda_device):
+    """The bfloat16 detector (float32 weights) on the card against the same
+    detector on the CPU: base features from the same frames and head
+    features from the same pooled input within 2**-6 x max|ref|."""
+    from vidsgg_torch.detector import FasterRCNN, RPNConfig
+
+    det = FasterRCNN(rpn_cfg=RPNConfig(pre_nms_top_n=64, post_nms_top_n=8),
+                     base_blocks=(1, 1, 1), head_blocks=1, device="cpu",
+                     generator=torch.Generator().manual_seed(7), dtype=torch.bfloat16)
+    card = FasterRCNN(rpn_cfg=RPNConfig(pre_nms_top_n=64, post_nms_top_n=8),
+                      base_blocks=(1, 1, 1), head_blocks=1, device=cuda_device,
+                      dtype=torch.bfloat16)
+    card.load_state_dict(det.state_dict())
+    rng = np.random.RandomState(3)
+    frames = torch.from_numpy((rng.randn(2, 96, 160, 3) * 40).astype(np.float32))
+    pooled = torch.from_numpy(rng.randn(12, 7, 7, 1024).astype(np.float32))
+    with torch.no_grad():
+        pairs = [(det.base_features(frames), card.base_features(frames.to(cuda_device))),
+                 (det.head_to_tail(pooled), card.head_to_tail(pooled.to(cuda_device)))]
+    for want, got in pairs:
+        assert got.dtype == want.dtype == torch.float32
+        tol = 2.0 ** -6 * float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= tol
 
 
 @pytest.mark.cuda

@@ -6,9 +6,14 @@ jwyang checkpoint's (``RCNN_base.*``, ``RCNN_top.0``, ``RCNN_rpn.*``,
 and ``base_feat`` goes out as ``[B, h, w, 1024]`` (a view of the NCHW
 tensor the convolutions produce).
 
-The compute dtype is the parameters' dtype (``model.double()`` runs the
-detector in float64); the base and head outputs are float32, as in
-``vidsgg``.
+``dtype`` is the compute dtype of the base and the head, as
+``vidsgg``'s ``FasterRCNN(dtype=...)``: with ``torch.bfloat16`` their
+convolutions run in bfloat16 on float32 weights (``resnet.py``) and the
+box ROIAlign takes it as its ``compute_dtype``; the RPN, ``RCNN_cls_score``
+and ``RCNN_bbox_pred`` stay in the parameters' dtype, and the parameters
+and ``state_dict()`` stay float32. ``dtype=None`` computes everything in
+the parameters' dtype (``model.double()`` runs the detector in float64).
+The base and head outputs are float32 either way, as in ``vidsgg``.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from vidsgg_torch import constants as C
-from vidsgg_torch.detector.resnet import ResNet101Base, ResNetHead
+from vidsgg_torch.detector.resnet import ResNet101Base, ResNetHead, set_compute_dtype
 from vidsgg_torch.detector.rpn import RPN, RPNConfig, generate_anchors, proposal_layer
 from vidsgg_torch.device import resolve_device
 from vidsgg_torch.init import init_weights_
@@ -29,7 +34,8 @@ class FasterRCNN(nn.Module):
     def __init__(self, num_classes: int = C.NUM_OBJ_CLASSES,
                  rpn_cfg: RPNConfig = RPNConfig(),
                  base_blocks: tuple = (3, 4, 23), head_blocks: int = 3,
-                 device=None, generator: torch.Generator | None = None):
+                 device=None, generator: torch.Generator | None = None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         dev = resolve_device(device)
         self.num_classes = num_classes
@@ -41,8 +47,15 @@ class FasterRCNN(nn.Module):
         self.RCNN_cls_score = nn.Linear(2048, num_classes)
         self.RCNN_bbox_pred = nn.Linear(2048, 4 * num_classes)
         init_weights_(self, generator)
+        self.set_compute_dtype(dtype)
         self.to(dev)
         self.eval()
+
+    def set_compute_dtype(self, dtype: torch.dtype | None):
+        """The compute dtype of the base and the head (None: the
+        parameters'); the weights are left as they are."""
+        self.compute_dtype = dtype
+        set_compute_dtype(self, dtype)
 
     @property
     def device(self) -> torch.device:
@@ -50,7 +63,8 @@ class FasterRCNN(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.RCNN_cls_score.weight.dtype
+        """The compute dtype of the base and the head."""
+        return self.compute_dtype or self.RCNN_cls_score.weight.dtype
 
     def base_features(self, images: torch.Tensor) -> torch.Tensor:
         """[B, H, W, 3] -> [B, 1024, H/16, W/16] (RCNN_base), NCHW."""
@@ -62,7 +76,7 @@ class FasterRCNN(nn.Module):
 
     def class_scores(self, feats: torch.Tensor) -> torch.Tensor:
         """[N, 2048] -> [N, C] raw logits (RCNN_cls_score)."""
-        return self.RCNN_cls_score(feats.to(self.dtype))
+        return self.RCNN_cls_score(feats.to(self.RCNN_cls_score.weight.dtype))
 
     def forward(self, images: torch.Tensor, im_hw) -> dict:
         """images [B, H, W, 3] preprocessed frames; im_hw [2] network-scale
@@ -90,9 +104,9 @@ class FasterRCNN(nn.Module):
             ).reshape(b * n, C.ROI_ALIGN_OUT, C.ROI_ALIGN_OUT, -1)
         with record_function("vidsgg.rcnn_head"):
             feats = self.head_to_tail(pooled).reshape(b, n, -1)
-        logits = self.RCNN_cls_score(feats.to(self.dtype))
+        logits = self.class_scores(feats)
         cls_prob = torch.softmax(logits, dim=-1)
-        bbox_pred = self.RCNN_bbox_pred(feats.to(self.dtype))
+        bbox_pred = self.RCNN_bbox_pred(feats.to(self.RCNN_bbox_pred.weight.dtype))
         m = roi_mask[..., None]
         return {
             "rois": rois5 * m,

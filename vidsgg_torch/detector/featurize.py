@@ -28,9 +28,10 @@ def _union_boxes(entry: Entry):
     obj = b[pair[:, 1]]
     union = torch.cat([torch.minimum(sub[:, 0:2], obj[:, 0:2]),
                        torch.maximum(sub[:, 2:4], obj[:, 2:4])], dim=1)
+    # float32 frame column beside the scaled unions: the concatenation
+    # promotes (float32 for bfloat16 boxes, float64 for float64 ones)
     union_boxes = torch.cat(
-        [entry.im_idx[:, None].to(torch.float32).to(union.dtype),
-         union * entry.im_scale], dim=1)
+        [entry.im_idx[:, None].to(torch.float32), union * entry.im_scale], dim=1)
     return sub, obj, union_boxes
 
 

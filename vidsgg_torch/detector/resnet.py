@@ -11,11 +11,21 @@ on the 3x3 ``conv2``; the max-pool is 3x3/2 with padding 1; BN is
 ``(x - mean) * reciprocal(sqrt(var + eps)) * scale + bias``; every layer's
 first block has a projection shortcut; the base and head outputs are
 float32 whatever the compute dtype.
+
+The compute dtype (``compute_dtype``, set through
+:func:`set_compute_dtype`; None: the parameters' dtype) is the
+convolutions' as ``vidsgg``'s ``conv_ctor(quant="off", dtype)`` makes them:
+a convolution casts its input and its float32 weight to it. FrozenBatchNorm
+keeps its float32 parameters, so a bfloat16 input promotes to float32;
+``bn1`` and ``bn2`` are cast back to the compute dtype, ``bn3`` and the
+projection shortcut stay float32, and the residual add and ReLU run in
+float32 before the block's output is cast.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -41,7 +51,28 @@ def _conv(cin, cout, k, stride=1, padding=0):
     return nn.Conv2d(cin, cout, k, stride=stride, padding=padding, bias=False)
 
 
-class Bottleneck(nn.Module):
+def _conv_in(conv: nn.Conv2d, x, dtype):
+    """``conv`` with its input and weight cast to ``dtype``."""
+    return F.conv2d(x.to(dtype), conv.weight.to(dtype), None, conv.stride, conv.padding)
+
+
+class _ComputeDtype:
+    """The compute dtype of a backbone module; None: the parameters'."""
+
+    compute_dtype: torch.dtype | None = None
+
+    def _dtype(self, conv: nn.Conv2d) -> torch.dtype:
+        return self.compute_dtype or conv.weight.dtype
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype | None):
+    """Set the compute dtype of every backbone module under ``module``."""
+    for m in module.modules():
+        if isinstance(m, _ComputeDtype):
+            m.compute_dtype = dtype
+
+
+class Bottleneck(_ComputeDtype, nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
@@ -60,11 +91,15 @@ class Bottleneck(nn.Module):
         )
 
     def forward(self, x):
-        h = torch.relu(self.bn1(self.conv1(x)))
-        h = torch.relu(self.bn2(self.conv2(h)))
-        h = self.bn3(self.conv3(h))
-        identity = x if self.downsample is None else self.downsample(x)
-        return torch.relu(h + identity)
+        dt = self._dtype(self.conv1)
+        h = torch.relu(self.bn1(_conv_in(self.conv1, x, dt)).to(dt))
+        h = torch.relu(self.bn2(_conv_in(self.conv2, h, dt)).to(dt))
+        h = self.bn3(_conv_in(self.conv3, h, dt))
+        if self.downsample is None:
+            identity = x
+        else:
+            identity = self.downsample[1](_conv_in(self.downsample[0], x, dt))
+        return torch.relu(h + identity).to(dt)
 
 
 def _layer(inplanes: int, planes: int, blocks: int, stride: int) -> nn.Sequential:
@@ -73,7 +108,7 @@ def _layer(inplanes: int, planes: int, blocks: int, stride: int) -> nn.Sequentia
     return nn.Sequential(*mods)
 
 
-class ResNet101Base(nn.Sequential):
+class ResNet101Base(_ComputeDtype, nn.Sequential):
     """conv1..layer3: [B, 3, H, W] -> [B, 1024, H/16, W/16] float32.
 
     ``blocks`` defaults to ResNet-101's (3, 4, 23); tests may shrink it.
@@ -91,8 +126,12 @@ class ResNet101Base(nn.Sequential):
         )
 
     def forward(self, x):
-        x = x.to(self[0].weight.dtype)
-        return super().forward(x).float()
+        conv1, bn1, relu, maxpool, *layers = self
+        dt = self._dtype(conv1)
+        h = maxpool(relu(bn1(_conv_in(conv1, x, dt)).to(dt)))
+        for layer in layers:
+            h = layer(h)
+        return h.float()
 
 
 class ResNetHead(nn.Sequential):
@@ -103,5 +142,4 @@ class ResNetHead(nn.Sequential):
         super().__init__(_layer(1024, 512, blocks, 2))
 
     def forward(self, pooled):
-        pooled = pooled.to(self[0][0].conv1.weight.dtype)
         return super().forward(pooled).mean(dim=(2, 3)).float()

@@ -1,6 +1,13 @@
 """Padded device outputs -> the NumPy evaluator's pred dict (counterpart of
 ``vidsgg/eval/adapter.py``): trim padding, hand over plain arrays keyed
-like the reference entry."""
+like the reference entry.
+
+A bfloat16 tensor (bfloat16 serving) comes over as a float32 array that
+holds its values exactly, and its key is listed under ``"bf16_fields"``:
+``vidsgg`` hands the evaluator ``ml_dtypes.bfloat16`` arrays there, whose
+arithmetic the evaluator then reproduces (NumPy has no bfloat16 of its
+own, and the card's machine no ``ml_dtypes``). Without bfloat16 tensors
+the dict has no such key."""
 
 from __future__ import annotations
 
@@ -10,8 +17,12 @@ import torch
 from vidsgg_torch.data.entry import Entry
 
 
+BF16_FIELDS = "bf16_fields"
+
+
 def _np(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
 def to_eval_pred(entry: Entry, out: dict, mode: str) -> dict:
@@ -40,4 +51,10 @@ def to_eval_pred(entry: Entry, out: dict, mode: str) -> dict:
     else:
         pred["pred_labels"] = _np(entry.pred_labels)[:n]
         pred["pred_scores"] = scores[:n]
+    sources = {"boxes": entry.boxes, "scores": entry.scores, "pred_scores": entry.scores,
+               **{k: out[k] for k in ("attention_distribution", "spatial_distribution",
+                                      "contacting_distribution")}}
+    bf16 = tuple(k for k, t in sources.items() if t.dtype == torch.bfloat16)
+    if bf16:
+        pred[BF16_FIELDS] = bf16
     return pred

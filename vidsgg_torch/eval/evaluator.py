@@ -2,7 +2,11 @@
 
 The port's own copy of ``vidsgg/eval/evaluator.py``, numerics verbatim
 (the grids must be identical, tie order of the unstable ``argsort``
-included); only the constants import differs.
+included). One addition: a pred dict whose object scores held bfloat16
+values (``adapter.BF16_FIELDS``) gets ``vidsgg``'s bfloat16 product of the
+subject and object scores in the "no" constraint, where ``ml_dtypes``
+rounds it (every other operation meets a float64 operand first and runs
+in float64 in both, every sort included).
 
 A pure-NumPy re-implementation of the reference's
 ``BasicSceneGraphEvaluator`` (tools/utils/evaluation_recall.py). Every
@@ -36,6 +40,8 @@ from functools import reduce
 import numpy as np
 
 from vidsgg_torch import constants as C
+from vidsgg_torch.eval.adapter import BF16_FIELDS
+from vidsgg_torch.numerics import round_bf16
 
 
 def intersect_2d(x1: np.ndarray, x2: np.ndarray) -> np.ndarray:
@@ -278,9 +284,11 @@ class SceneGraphEvaluator:
         boxes = np.asarray(pred["boxes"])
         if self.mode == "predcls":
             pred_classes_all = np.asarray(pred["labels"])
+            score_key = "scores"
             obj_scores_all = np.asarray(pred["scores"])
         else:
             pred_classes_all = np.asarray(pred["pred_labels"])
+            score_key = "pred_scores"
             obj_scores_all = np.asarray(pred["pred_scores"])
 
         n_att = len(self.attention_predicates)
@@ -331,10 +339,12 @@ class SceneGraphEvaluator:
                 pred_classes_all,
                 obj_scores_all,
                 rel_scores,
+                bf16_scores=score_key in pred.get(BF16_FIELDS, ()),
             )
 
     def _evaluate_frame(self, gt_rels, gt_boxes, gt_classes, pred_rel_inds,
-                        pred_boxes, pred_classes, obj_scores, rel_scores):
+                        pred_boxes, pred_classes, obj_scores, rel_scores,
+                        bf16_scores=False):
         """Constraint filtering + matching + accumulation
         (reference evaluate_from_dict, evaluation_recall.py:180-276)."""
         threshold = self.semithreshold if self.semithreshold is not None else 0.9
@@ -362,6 +372,8 @@ class SceneGraphEvaluator:
             predicate_scores = np.array(predicate_scores)
         elif self.constraint == "no":
             obj_scores_per_rel = obj_scores[pred_rel_inds].prod(1)
+            if bf16_scores:  # exact in float32: one rounding is ml_dtypes'
+                obj_scores_per_rel = round_bf16(obj_scores_per_rel)
             overall = obj_scores_per_rel[:, None] * rel_scores
             score_inds = argsort_desc(overall)[:100]
             pred_rels = np.column_stack(

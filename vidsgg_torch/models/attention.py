@@ -3,7 +3,10 @@
 Semantics of ``torch.nn.MultiheadAttention`` (packed q/k/v in-projection,
 scaled dot product, softmax over allowed keys, out-projection) with the
 masking written out: a fully masked row gives all-zero weights, where
-``F.scaled_dot_product_attention`` gives NaN. Parameter names are
+``F.scaled_dot_product_attention`` gives NaN. Projections and products
+promote their operands as ``vidsgg``'s Flax layers do (``promote.py``:
+float32 queries over a bfloat16 memory bank attend in float32), and the
+scores are divided by sqrt(head_dim) in the queries' type. Parameter names are
 ``nn.MultiheadAttention``'s, so reference checkpoints load as they are;
 :class:`SeparateProjAttention` is the same attention in fairseq's layout
 (TokenGT's).
@@ -14,8 +17,9 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+
+from vidsgg_torch.models.promote import dense, linear, matmul
 
 _NEG_INF = -1e9
 
@@ -31,6 +35,11 @@ def masked_softmax(scores: torch.Tensor, mask: torch.Tensor | None) -> torch.Ten
         e = torch.where(mask, e, torch.zeros_like(e))
     denom = e.sum(dim=-1, keepdim=True)
     return e / torch.clamp(denom, min=1e-30)
+
+
+def _scaled(scores, head_dim: int, qh):
+    """scores / sqrt(head_dim), the divisor in the queries' type."""
+    return scores / torch.tensor(math.sqrt(head_dim), dtype=qh.dtype)
 
 
 class MultiheadAttention(nn.Module):
@@ -54,20 +63,20 @@ class MultiheadAttention(nn.Module):
         w = self.in_proj_weight
         b = self.in_proj_bias
         bq, bk, bv = (None, None, None) if b is None else (b[:d], b[d:2 * d], b[2 * d:])
-        wq = F.linear(q.to(w.dtype), w[:d], bq)
-        wk = F.linear(k.to(w.dtype), w[d:2 * d], bk)
-        wv = F.linear(v.to(w.dtype), w[2 * d:], bv)
+        wq = linear(q, w[:d], bq)
+        wk = linear(k, w[d:2 * d], bk)
+        wv = linear(v, w[2 * d:], bv)
 
         def split(x):  # [..., T, D] -> [..., H, T, hd]
             return x.reshape(x.shape[:-1] + (h, hd)).transpose(-3, -2)
 
         qh, kh, vh = split(wq), split(wk), split(wv)
-        scores = torch.matmul(qh, kh.transpose(-1, -2)) / math.sqrt(hd)
+        scores = _scaled(matmul(qh, kh.transpose(-1, -2)), hd, qh)
         if attn_mask is not None and attn_mask.dim() == scores.dim() - 1:
             attn_mask = attn_mask[..., None, :, :]
-        out = torch.matmul(masked_softmax(scores, attn_mask), vh)
+        out = matmul(masked_softmax(scores, attn_mask), vh)
         out = out.transpose(-3, -2).reshape(q.shape[:-1] + (d,))
-        return self.out_proj(out)
+        return dense(self.out_proj, out)
 
 
 class SeparateProjAttention(nn.Module):
@@ -96,9 +105,10 @@ class SeparateProjAttention(nn.Module):
         def split(t):  # [..., T, D] -> [..., H, T, hd]
             return t.reshape(t.shape[:-1] + (h, hd)).transpose(-3, -2)
 
-        qh, kh, vh = split(self.q_proj(x)), split(self.k_proj(x)), split(self.v_proj(x))
-        scores = torch.matmul(qh, kh.transpose(-1, -2)) / math.sqrt(hd)
+        qh = split(dense(self.q_proj, x))
+        kh, vh = split(dense(self.k_proj, x)), split(dense(self.v_proj, x))
+        scores = _scaled(matmul(qh, kh.transpose(-1, -2)), hd, qh)
         if attn_mask is not None and attn_mask.dim() == scores.dim() - 1:
             attn_mask = attn_mask[..., None, :, :]
-        out = torch.matmul(masked_softmax(scores, attn_mask), vh)
-        return self.out_proj(out.transpose(-3, -2).reshape(x.shape[:-1] + (d,)))
+        out = matmul(masked_softmax(scores, attn_mask), vh)
+        return dense(self.out_proj, out.transpose(-3, -2).reshape(x.shape[:-1] + (d,)))

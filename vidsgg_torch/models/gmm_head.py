@@ -18,8 +18,9 @@ uncertainty outputs come with the training slice.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+
+from vidsgg_torch.models.promote import linear
 
 
 class GMMHead(nn.Module):
@@ -45,10 +46,9 @@ class GMMHead(nn.Module):
         mods = [self.heads[f"{quant}_{i}"] for i in range(1, self.k + 1)]
         w = torch.cat([m.weight for m in mods], dim=0)
         b = torch.cat([m.bias for m in mods], dim=0)
-        return F.linear(x, w, b)
+        return linear(x, w, b)
 
     def forward(self, x):
-        x = x.to(self.heads["mu_1"].weight.dtype)
         b = x.shape[0]
         mu = self._fused("mu", x).reshape(b, self.k, self.num_classes)
         pi = torch.softmax(self._fused("pi", x), dim=-1)    # [B, K]

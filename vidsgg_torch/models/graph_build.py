@@ -22,6 +22,7 @@ import dataclasses
 import torch
 
 from vidsgg_torch.data.entry import Entry
+from vidsgg_torch.models.promote import weak
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,13 +137,15 @@ def clip_edge_masks(frames, centers, feats, mask, edge_thr, sim_thr: float = 0.7
     vv = mask[:, :, None] & mask[:, None, :]
     not_self = ~torch.eye(mask.shape[-1], dtype=torch.bool, device=mask.device)[None]
     same_frame = frames[:, :, None] == frames[:, None, :]
-    d = torch.sqrt(((centers[:, :, None, :] - centers[:, None, :, :]) ** 2).sum(-1) + 1e-12)
+    d2 = ((centers[:, :, None, :] - centers[:, None, :, :]) ** 2).sum(-1)
+    d = torch.sqrt(d2 + weak(1e-12, d2))
     edge_thr = torch.as_tensor(edge_thr, device=d.device)
     if edge_thr.dim() == 1:
         edge_thr = edge_thr[:, None, None]
     spatial = vv & not_self & same_frame & (d <= edge_thr)
 
-    nrm = feats * torch.rsqrt((feats * feats).sum(-1, keepdim=True) + 1e-12)
+    sq = (feats * feats).sum(-1, keepdim=True)
+    nrm = feats * torch.rsqrt(sq + weak(1e-12, sq))
     cos = torch.einsum("bid,bjd->bij", nrm, nrm)
     next_frame = frames[:, None, :] == frames[:, :, None] + 1
     temporal_fwd = vv & next_frame & (cos >= sim_thr)

@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from vidsgg_torch.models.attention import masked_softmax
+from vidsgg_torch.models.promote import dense, result_type
 
 
 class GlobalAttentionPooling(nn.Module):
@@ -27,5 +28,6 @@ class GlobalAttentionPooling(nn.Module):
         self.gate_nn = gate_nn
 
     def forward(self, x, mask):
-        w = masked_softmax(self.gate_nn(x)[..., 0], mask)
-        return torch.einsum("bn,bnd->bd", w, x)
+        w = masked_softmax(dense(self.gate_nn, x)[..., 0], mask)
+        dt = result_type(w, x)
+        return torch.einsum("bn,bnd->bd", w.to(dt), x.to(dt))

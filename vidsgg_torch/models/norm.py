@@ -2,14 +2,18 @@
 
 In eval mode the running statistics are used, so the validity mask does not
 enter: ``y = (x - mean) / sqrt(var + eps) * weight + bias`` over the channel
-axis. Names are ``nn.BatchNorm``'s. Training (masked batch moments) comes
-with the training slice.
+axis, in the promotion of the input's and the statistics' types (a float32
+input through bfloat16 statistics runs in float32, as in ``vidsgg``).
+Names are ``nn.BatchNorm``'s. Training (masked batch moments) comes with
+the training slice.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from vidsgg_torch.models.promote import result_type, weak
 
 
 class MaskedBatchNorm(nn.Module):
@@ -26,7 +30,8 @@ class MaskedBatchNorm(nn.Module):
         dim = self.channel_dim % x.dim()
         shape = [1] * x.dim()
         shape[dim] = -1
-        x = x.to(self.weight.dtype)
-        y = (x - self.running_mean.reshape(shape)) / torch.sqrt(
-            self.running_var.reshape(shape) + self.eps)
-        return y * self.weight.reshape(shape) + self.bias.reshape(shape)
+        dt = result_type(x, self.weight)
+        mean, var, w, b = (t.to(dt).reshape(shape) for t in (
+            self.running_mean, self.running_var, self.weight, self.bias))
+        y = (x.to(dt) - mean) / torch.sqrt(var + weak(self.eps, var))
+        return y * w + b

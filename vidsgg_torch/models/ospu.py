@@ -25,6 +25,7 @@ from torch import nn
 from vidsgg_torch import constants as C
 from vidsgg_torch.models.gmm_head import GMMHead
 from vidsgg_torch.models.norm import MaskedBatchNorm
+from vidsgg_torch.models.promote import dense, matmul
 from vidsgg_torch.models.sttran import EncoderLayer, MemoryHallucinator, _Layers
 
 OBJ_FEAT_DIM = 2048 + 200 + 128  # 2376
@@ -92,19 +93,21 @@ class ObjectClassifier(MemoryHallucinator):
         cum = torch.cumsum(present, dim=1) - present
         return cum[seq_cls, frame]
 
+    def _intermediate(self, x):
+        fc, bn, relu = self.intermediate
+        return relu(bn(dense(fc, x)))
+
     def forward(self, entry, obj_memory=None, mem_active=False):
         """Test phase. Returns 'distribution' [N, C-1], 'object_features',
         'object_mem_features'."""
-        dtype = self.obj_embed.weight.dtype
         valid = entry.obj_mask
-        dist_in = entry.distribution.to(dtype)
-        obj_embed = dist_in @ self.obj_embed.weight
-        cs = center_size(entry.boxes[:, 1:].to(dtype))
-        pos = self.pos_embed(cs)
-        feats = torch.cat([entry.features.to(dtype), obj_embed, pos], dim=1)
+        obj_embed = matmul(entry.distribution, self.obj_embed.weight)
+        bn, fc = self.pos_embed[0], self.pos_embed[1]
+        pos = torch.relu(dense(fc, bn(center_size(entry.boxes[:, 1:]))))
+        feats = torch.cat([entry.features, obj_embed, pos], dim=1)
 
         if self.tracking:
-            seq_cls = torch.argmax(dist_in, dim=1)
+            seq_cls = torch.argmax(entry.distribution, dim=1)
             frame = entry.boxes[:, 0].to(torch.int64)
             pos_idx = self._track_positions(seq_cls, frame, valid,
                                             entry.frame_mask.shape[0])
@@ -118,9 +121,9 @@ class ObjectClassifier(MemoryHallucinator):
             if self.use_memory:
                 obj_features = self.hallucinate(obj_features, obj_memory, mem_active)
             object_mem_features = obj_features
-            h = self.intermediate(obj_features)
+            h = self._intermediate(obj_features)
         else:
-            h = self.intermediate(feats)
+            h = self._intermediate(feats)
             object_features = h
             if self.use_memory:
                 h = self.hallucinate(h, obj_memory, mem_active)
@@ -133,6 +136,6 @@ class ObjectClassifier(MemoryHallucinator):
         if self.obj_head == "gmm":
             dist = self.decoder_lin(h)
         else:
-            dist = torch.softmax(self.decoder_lin(h)[:, 1:], dim=1)
+            dist = torch.softmax(dense(self.decoder_lin[0], h)[:, 1:], dim=1)
         out["distribution"] = dist * valid[:, None]
         return out

@@ -26,27 +26,30 @@ import dataclasses
 
 import numpy as np
 
+from vidsgg_torch.numerics import round_bf16
 
-def _np_iou(boxes_a, boxes_b):
-    area_a = (boxes_a[:, 2] - boxes_a[:, 0] + 1) * (boxes_a[:, 3] - boxes_a[:, 1] + 1)
-    area_b = (boxes_b[:, 2] - boxes_b[:, 0] + 1) * (boxes_b[:, 3] - boxes_b[:, 1] + 1)
-    iw = (
-        np.minimum(boxes_a[:, None, 2], boxes_b[None, :, 2])
-        - np.maximum(boxes_a[:, None, 0], boxes_b[None, :, 0])
-        + 1
-    )
-    ih = (
-        np.minimum(boxes_a[:, None, 3], boxes_b[None, :, 3])
-        - np.maximum(boxes_a[:, None, 1], boxes_b[None, :, 1])
-        + 1
-    )
+
+def _np_iou(boxes_a, boxes_b, bf16: bool = False):
+    """Inclusive (+1) IoU. ``bf16``: the boxes hold bfloat16 values, and the
+    coordinate differences round to bfloat16, as ``ml_dtypes`` arrays do in
+    ``vidsgg``; the ``+ 1`` takes NumPy to float32 there, and the rest runs
+    in float32 in both."""
+    def sub(x, y):
+        return round_bf16(x - y) if bf16 else x - y
+
+    area_a = (sub(boxes_a[:, 2], boxes_a[:, 0]) + 1) * (sub(boxes_a[:, 3], boxes_a[:, 1]) + 1)
+    area_b = (sub(boxes_b[:, 2], boxes_b[:, 0]) + 1) * (sub(boxes_b[:, 3], boxes_b[:, 1]) + 1)
+    iw = sub(np.minimum(boxes_a[:, None, 2], boxes_b[None, :, 2]),
+             np.maximum(boxes_a[:, None, 0], boxes_b[None, :, 0])) + 1
+    ih = sub(np.minimum(boxes_a[:, None, 3], boxes_b[None, :, 3]),
+             np.maximum(boxes_a[:, None, 1], boxes_b[None, :, 1])) + 1
     inter = np.clip(iw, 0, None) * np.clip(ih, 0, None)
     return inter / (area_a[:, None] + area_b[None, :] - inter)
 
 
-def _greedy_nms(boxes, scores, thresh):
+def _greedy_nms(boxes, scores, thresh, bf16: bool = False):
     order = np.argsort(-scores, kind="stable")
-    iou = _np_iou(boxes[order], boxes[order])
+    iou = _np_iou(boxes[order], boxes[order], bf16)
     keep = []
     suppressed = np.zeros(len(order), bool)
     for i in range(len(order)):
@@ -165,9 +168,11 @@ def _clean_class(o: ObjectsView, num_frames: int, class_idx: int) -> ObjectsView
     return ObjectsView.concat(out)
 
 
-def sgdet_postprocess(o: ObjectsView, num_frames: int, nms_thresh: float = 0.6):
+def sgdet_postprocess(o: ObjectsView, num_frames: int, nms_thresh: float = 0.6,
+                      bf16: bool = False):
     """``o.pred_labels`` must arrive prefilled with the *detector's* labels:
-    clean_class keys off them before OSPU relabeling (lib/tempura.py:331-333)."""
+    clean_class keys off them before OSPU relabeling (lib/tempura.py:331-333).
+    ``bf16``: the boxes and scores hold bfloat16 values (see ``_np_iou``)."""
     for cls in (5, 8, 17):
         o = _clean_class(o, num_frames, cls)
 
@@ -185,7 +190,7 @@ def sgdet_postprocess(o: ObjectsView, num_frames: int, nms_thresh: float = 0.6):
             if len(inds) == 0:
                 continue
             cls_scores = o.distribution[inds, j]
-            keep = _greedy_nms(o.boxes[inds, 1:], cls_scores, nms_thresh)
+            keep = _greedy_nms(o.boxes[inds, 1:], cls_scores, nms_thresh, bf16)
             keep_parts.append(inds[keep])
     kept = np.concatenate(keep_parts) if keep_parts else np.zeros(0, int)
     # reference concatenation order is frame-major then class-major; re-sort

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from vidsgg_torch.models.attention import MultiheadAttention
+from vidsgg_torch.models.promote import dense, layer_norm
 
 
 class EncoderLayer(nn.Module):
@@ -40,8 +41,9 @@ class EncoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(embed_dim, eps=1e-5)
 
     def forward(self, src, attn_mask):
-        src = self.norm1(src + self.self_attn(src, src, src, attn_mask))
-        return self.norm2(src + self.linear2(torch.relu(self.linear1(src))))
+        src = layer_norm(self.norm1, src + self.self_attn(src, src, src, attn_mask))
+        ffn = dense(self.linear2, torch.relu(dense(self.linear1, src)))
+        return layer_norm(self.norm2, src + ffn)
 
 
 class DecoderLayer(nn.Module):
@@ -56,8 +58,8 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, pos, attn_mask):
         qk = x + pos
-        t = self.norm3(x + self.multihead2(qk, qk, x, attn_mask))
-        return t + self.linear2(torch.relu(self.linear1(t)))
+        t = layer_norm(self.norm3, x + self.multihead2(qk, qk, x, attn_mask))
+        return t + dense(self.linear2, torch.relu(dense(self.linear1, t)))
 
 
 class MemoryHallucinator(nn.Module):
@@ -88,7 +90,7 @@ class MemoryHallucinator(nn.Module):
         if self.selector is None:
             e = self.selection_lambda
         else:
-            e = torch.sigmoid(self.selector(feat))
+            e = torch.sigmoid(dense(self.selector, feat))
         if self.mem_compute == "seperate":
             outs = [self.mem_attention[rel](feat, memory[rel], memory[rel])
                     for rel in ("attention", "contacting", "spatial")]
@@ -129,7 +131,6 @@ class STTran(MemoryHallucinator):
                 mem_active=False):
         """features [P, D], im_idx [P], pair_mask [P] bool, num_frames [] ->
         (global_output, rel_features, mem_features)."""
-        features = features.to(self.position_embedding.weight.dtype)
         p = features.shape[0]
         f = im_idx.long()
         pm = pair_mask

@@ -19,8 +19,13 @@ are independent; the pooled state is still returned as
 
 Names are the reference checkpoint's keys (``subj_fc``, ``obj_fc``,
 ``node_label_tokenizer``, ``TokenGT_encoder.*``, ``gate_gru_nn`` and its
-twin ``gap_gru.gate_nn``, ``object_classifier.*``). The compute dtype is
-the parameters'.
+twin ``gap_gru.gate_nn``, ``object_classifier.*``). Each layer computes
+in the promotion of its input's and its parameters' types, as ``vidsgg``'s
+(``promote.py``). In a bfloat16 copy the graph is built from bfloat16
+tokens, centres and video size (the spatial threshold's constants take
+that type too, as JAX's weak-typed scalars do); the eigenvectors reach
+TokenGT as float32, the type of ``vidsgg``'s float32 eigendecomposition,
+so the Laplacian identifiers and with them TokenGT run in float32.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from vidsgg_torch.models.graph_build import (
 )
 from vidsgg_torch.models.graph_transformer import GlobalAttentionPooling
 from vidsgg_torch.models.ospu import ObjectClassifier
+from vidsgg_torch.models.promote import dense, weak
 from vidsgg_torch.models.tokengt import TokenGTEncoder
 from vidsgg_torch.ops.laplacian import masked_laplacian_eig
 
@@ -78,6 +84,15 @@ class TeatGTConfig:
             kw.setdefault("encoder_layers", 6)
             kw.setdefault("encoder_attention_heads", 16)
         return TeatGTConfig(mode=mode, **kw)
+
+
+def spatial_threshold(video_size: torch.Tensor, spatial_thr: float) -> torch.Tensor:
+    """``spatial_thr`` x the video diagonal, rounded to 4 decimals like the
+    reference's ``np.round(..., 4)``, in the video size's type (the
+    constants take it too, as JAX's weak-typed scalars do)."""
+    diag = torch.sqrt((video_size ** 2).sum())
+    e4 = weak(1e4, diag)
+    return torch.round(weak(spatial_thr, diag) * diag * e4) / e4
 
 
 class TeatGT(nn.Module):
@@ -124,15 +139,14 @@ class TeatGT(nn.Module):
         has no memory."""
         cfg = self.cfg
         caps = cfg.caps
-        dtype = self.subj_fc.weight.dtype
         dev = entry.pair_mask.device
         with record_function("vidsgg.graph_build"):
             layout = build_token_layout(entry, caps)
 
             # token features: person/object projections + label embedding = 1168
-            feats = entry.features[layout.token_box].to(dtype)
-            proj = torch.where(layout.token_is_person[:, None], self.subj_fc(feats),
-                               self.obj_fc(feats))
+            feats = entry.features[layout.token_box]
+            proj = torch.where(layout.token_is_person[:, None], dense(self.subj_fc, feats),
+                               dense(self.obj_fc, feats))
             tok = torch.cat([proj, self.node_label_tokenizer.weight[layout.token_label]], dim=1)
             tok = tok * layout.token_valid[:, None]
 
@@ -144,10 +158,7 @@ class TeatGT(nn.Module):
             cframe = torch.where(cmask, layout.token_frame[ct] - offset, torch.zeros_like(ct))
             ccenter = layout.token_center[ct]
 
-            # spatial threshold: 0.5 x video diagonal, rounded to 4 decimals
-            # like the reference's np.round(..., 4)
-            diag = torch.sqrt((entry.video_size ** 2).sum())
-            thr = torch.round(cfg.spatial_thr * diag * 1e4) / 1e4
+            thr = spatial_threshold(entry.video_size, cfg.spatial_thr)
             spatial, temporal = clip_edge_masks(cframe, ccenter, cfeat, cmask, thr,
                                                 cfg.sim_thr)
             edge_index, edge_type, edge_mask, adj = masks_to_edge_list(
@@ -161,7 +172,7 @@ class TeatGT(nn.Module):
             _, eigvec = masked_laplacian_eig(adj.double(), cmask)
         with record_function("vidsgg.tokengt"):
             node_logits, node_hidden, _ = self.TokenGT_encoder(
-                cfeat, cmask, cframe, edge_index, edge_type, edge_mask, eigvec)
+                cfeat, cmask, cframe, edge_index, edge_type, edge_mask, eigvec.float())
         out = {"clip_hidden_state": self.gap_gru(node_hidden, cmask)}
 
         # object-token logits -> pair axis; row p_cap takes every other token

@@ -19,7 +19,12 @@ itself (:class:`PairFeatures` is its base class). Since the convolutions
 run NCHW, ``vr_fc`` takes the reference's CHW flatten with the reference's
 weight as it is.
 
-The compute dtype is the parameters' (``model.double()`` gives float64).
+Each layer computes in the promotion of its input's and its parameters'
+types, as ``vidsgg``'s Flax layers do (``promote.py``): ``model.double()``
+gives float64; a bfloat16 copy (``EvalPipeline(compute_dtype=...)``) runs
+bfloat16 where its inputs are bfloat16 and float32 where they are float32
+(the spatial masks, and with them the visual pair features and the
+relation transformer, in the sgcls and sgdet stages).
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from vidsgg_torch.models.embeddings import obj_edge_vectors
 from vidsgg_torch.models.gmm_head import GMMHead
 from vidsgg_torch.models.norm import MaskedBatchNorm
 from vidsgg_torch.models.ospu import ObjectClassifier
+from vidsgg_torch.models.promote import conv2d, dense
 from vidsgg_torch.models.sttran import STTran
 
 
@@ -95,17 +101,17 @@ class PairFeatures(nn.Module):
 
     def pair_features(self, entry: Entry, obj_mem_features, pred_labels):
         """-> (rel [P, 1936], obj_class [P])."""
-        dtype = self.subj_fc.weight.dtype
         pair = entry.pair_idx.long()
         pm = entry.pair_mask
         src = obj_mem_features if self.cfg.take_obj_mem_feat else entry.features
-        src = src.to(dtype)
-        subj = self.subj_fc(src[pair[:, 0]])
-        obj = self.obj_fc(src[pair[:, 1]])
+        subj = dense(self.subj_fc, src[pair[:, 0]])
+        obj = dense(self.obj_fc, src[pair[:, 1]])
 
-        u = self.union_func1(entry.union_feat.to(dtype).permute(0, 3, 1, 2))
-        h = self.conv(entry.spatial_masks.to(dtype))
-        vr = self.vr_fc((u + h).reshape(u.shape[0], -1))     # CHW flatten
+        u = conv2d(self.union_func1, entry.union_feat.permute(0, 3, 1, 2))
+        h = entry.spatial_masks
+        for layer in self.conv:
+            h = conv2d(layer, h) if isinstance(layer, nn.Conv2d) else layer(h)
+        vr = dense(self.vr_fc, (u + h).reshape(u.shape[0], -1))     # CHW flatten
         x_visual = torch.cat([subj, obj, vr], dim=1)
 
         subj_cls = pred_labels.long()[pair[:, 0]]
@@ -182,11 +188,11 @@ class Tempura(PairFeatures):
             out["contacting_distribution"] = self.c_rel_compress(global_output) * pm
         else:
             out["attention_distribution"] = torch.softmax(
-                self.a_rel_compress(global_output), dim=-1) * pm
+                dense(self.a_rel_compress, global_output), dim=-1) * pm
             out["spatial_distribution"] = torch.sigmoid(
-                self.s_rel_compress(global_output)) * pm
+                dense(self.s_rel_compress, global_output)) * pm
             out["contacting_distribution"] = torch.sigmoid(
-                self.c_rel_compress(global_output)) * pm
+                dense(self.c_rel_compress, global_output)) * pm
         return out
 
     def forward(self, entry: Entry, rel_memory=None, obj_memory=None,

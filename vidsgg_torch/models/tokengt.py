@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vidsgg_torch.models.attention import SeparateProjAttention
+from vidsgg_torch.models.promote import dense, layer_norm
 
 RANDOM_DRAWS = "ROADMAP.md queue 1 item 6c (random node identifiers and the performer)"
 
@@ -45,7 +46,7 @@ class _FeedForward(nn.Module):
         self.fc2 = nn.Linear(ffn_dim, embed_dim)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+        return dense(self.fc2, F.gelu(dense(self.fc1, x)))
 
 
 class TokenGTLayer(nn.Module):
@@ -59,8 +60,8 @@ class TokenGTLayer(nn.Module):
         self.final_layer_norm = nn.LayerNorm(embed_dim, eps=1e-5)
 
     def forward(self, x, attn_mask):
-        x = x + self.self_attn(self.self_attn_layer_norm(x), attn_mask)
-        return x + self.feedforward(self.final_layer_norm(x))
+        x = x + self.self_attn(layer_norm(self.self_attn_layer_norm, x), attn_mask)
+        return x + self.feedforward(layer_norm(self.final_layer_norm, x))
 
 
 class GraphFeatureTokenizer(nn.Module):
@@ -120,7 +121,6 @@ class TokenGTEncoder(nn.Module):
     def forward(self, node_data, node_mask, frame_idx, edge_index, edge_type, edge_mask,
                 lap_eigvec):
         gf = self.graph_encoder.graph_feature
-        dtype = gf.atom_encoder.weight.dtype
         b, tn = node_data.shape[:2]
         d = gf.atom_encoder.weight.shape[0]
         batch_ix = torch.arange(b, device=node_data.device)[:, None]
@@ -129,7 +129,7 @@ class TokenGTEncoder(nn.Module):
         edge_type = edge_type.long()
 
         # node features + temporal PE (zero for the clip's first frame)
-        node_feat = gf.atom_encoder(node_data.to(dtype))
+        node_feat = dense(gf.atom_encoder, node_data)
         tpe = gf.temp_encoder.weight[torch.clamp(frame_idx, 0, 99)] * (frame_idx != 0)[..., None]
         node_feat = node_feat + tpe
         # edge features (zero for spatial edges)
@@ -137,14 +137,14 @@ class TokenGTEncoder(nn.Module):
 
         # Laplacian node identifiers [id_u ; id_v]
         k = self.lap_node_id_k
-        eig = lap_eigvec[..., : min(k, lap_eigvec.shape[-1])].to(dtype)
+        eig = lap_eigvec[..., : min(k, lap_eigvec.shape[-1])]
         if eig.shape[-1] < k:
             eig = F.pad(eig, (0, k - eig.shape[-1]))
         node_id_pairs = torch.cat([eig, eig], dim=-1)
         eig_u = eig[batch_ix, edge_index[..., 0]]
         eig_v = eig[batch_ix, edge_index[..., 1]]
-        node_feat = node_feat + gf.lap_encoder(node_id_pairs)
-        edge_feat = edge_feat + gf.lap_encoder(torch.cat([eig_u, eig_v], dim=-1))
+        node_feat = node_feat + dense(gf.lap_encoder, node_id_pairs)
+        edge_feat = edge_feat + dense(gf.lap_encoder, torch.cat([eig_u, eig_v], dim=-1))
 
         # type identifiers: 1 for nodes, (u == v) for edges
         order = gf.order_encoder.weight
@@ -162,6 +162,7 @@ class TokenGTEncoder(nn.Module):
             seq = layer(seq, attn_mask)
 
         # LM head on the node tokens (per-token, so the others are not needed)
-        h = self.layer_norm(F.gelu(self.lm_head_transform_weight(seq[:, 2: 2 + tn])))
-        logits = self.embed_out(h) + self.lm_output_learned_bias
+        h = layer_norm(self.layer_norm,
+                       F.gelu(dense(self.lm_head_transform_weight, seq[:, 2: 2 + tn])))
+        logits = dense(self.embed_out, h) + self.lm_output_learned_bias
         return logits * node_mask[..., None], h * node_mask[..., None], seq[:, 0]

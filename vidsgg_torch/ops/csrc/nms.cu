@@ -43,18 +43,29 @@
 // takes the wrapper's sort, gathers and scatter off the class-grid call.
 //
 // Bit-exactness with the plain PyTorch version and with vidsgg: IoU in the
-// boxes' type (float32, or float64 for the grouped call in a float64 model)
-// in the reference order with explicit round-to-nearest intrinsics, built
-// with -fmad=false (no contraction), IEEE division; the threshold arrives in
-// the same type, and a box whose IoU equals it is not suppressed:
+// boxes' type (float32, float64 for the grouped call in a float64 model, or
+// bfloat16 for the grouped call in bfloat16 serving) in the reference order
+// with explicit round-to-nearest intrinsics, built with -fmad=false (no
+// contraction), IEEE division; the threshold arrives in the same type, and a
+// box whose IoU equals it is not suppressed:
 //   area  = (x2 - x1 + 1) * (y2 - y1 + 1)
 //   iw    = min(x2, xk2) - max(x1, xk1) + 1   (ih likewise)
 //   inter = max(iw, 0) * max(ih, 0)
 //   iou   = inter / (area + area_k - inter)
+//
+// The bfloat16 route (Bf16 below) stores boxes, scores and the kept list as
+// 16-bit values, and computes every operation above in float32 with the _rn
+// intrinsics, then rounds it to bfloat16 (nearest even) before the next one:
+// the per-operation rounding of torch's bfloat16 kernels and of XLA's. min
+// and max are exact. The comparison with the threshold (bfloat16(0.6) =
+// 0.6015625, rounded on the host) and the ranking keys use the exact
+// float32 upcast. A row is 8 bytes, so a lane stages it with one 8-byte
+// cp.async where a float32 row takes one 16-byte copy and a float64 row two.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstring>
 
 namespace {
 
@@ -77,6 +88,42 @@ __device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(
 __device__ __forceinline__ double min_(double a, double b) { return fmin(a, b); }
 __device__ __forceinline__ double max_(double a, double b) { return fmax(a, b); }
 
+// bfloat16 round to nearest even from float32 bits (NaN stays a quiet NaN),
+// as c10::BFloat16 and __float2bfloat16_rn round
+__host__ __device__ inline unsigned short bf16_bits_rn(unsigned u) {
+  if ((u & 0x7fffffffu) > 0x7f800000u) return static_cast<unsigned short>((u >> 16) | 0x40u);
+  return static_cast<unsigned short>((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
+}
+
+// A bfloat16 value: 16 bits of storage, arithmetic in float32 and one
+// rounding per operation.
+struct Bf16 {
+  unsigned short bits;
+  Bf16() = default;
+  // host and device: an exact conversion for values bfloat16 holds (the
+  // threshold and the fill arrive as such), round to nearest even otherwise
+  __host__ __device__ explicit Bf16(double x) {
+    const float f = static_cast<float>(x);
+    unsigned u;
+    memcpy(&u, &f, sizeof(u));
+    bits = bf16_bits_rn(u);
+  }
+  __device__ __forceinline__ float up() const { return __uint_as_float(static_cast<unsigned>(bits) << 16); }
+  __device__ __forceinline__ static Bf16 rn(float f) {
+    Bf16 r;
+    r.bits = bf16_bits_rn(__float_as_uint(f));
+    return r;
+  }
+};
+
+__device__ __forceinline__ Bf16 add_rn(Bf16 a, Bf16 b) { return Bf16::rn(__fadd_rn(a.up(), b.up())); }
+__device__ __forceinline__ Bf16 sub_rn(Bf16 a, Bf16 b) { return Bf16::rn(__fsub_rn(a.up(), b.up())); }
+__device__ __forceinline__ Bf16 mul_rn(Bf16 a, Bf16 b) { return Bf16::rn(__fmul_rn(a.up(), b.up())); }
+__device__ __forceinline__ Bf16 div_rn(Bf16 a, Bf16 b) { return Bf16::rn(__fdiv_rn(a.up(), b.up())); }
+__device__ __forceinline__ Bf16 min_(Bf16 a, Bf16 b) { return Bf16::rn(fminf(a.up(), b.up())); }
+__device__ __forceinline__ Bf16 max_(Bf16 a, Bf16 b) { return Bf16::rn(fmaxf(a.up(), b.up())); }
+__device__ __forceinline__ bool operator>(Bf16 a, Bf16 b) { return a.up() > b.up(); }
+
 // order-preserving unsigned key: a > b  <=>  key(a) > key(b); +0 == -0
 __device__ __forceinline__ unsigned long long order_key(float x) {
   unsigned b = x == 0.0f ? 0u : __float_as_uint(x);
@@ -87,6 +134,7 @@ __device__ __forceinline__ unsigned long long order_key(double x) {
       x == 0.0 ? 0ull : static_cast<unsigned long long>(__double_as_longlong(x));
   return (b >> 63) ? ~b : (b | (1ull << 63));
 }
+__device__ __forceinline__ unsigned long long order_key(Bf16 x) { return order_key(x.up()); }
 
 template <typename T>
 struct Box {
@@ -164,8 +212,12 @@ __device__ __forceinline__ void stage_row(T* dst, long long* dst_group, const T*
   if (r < n) {
     const size_t i = base + (order ? order[r] : r);
     const T* src = boxes + 4 * i;
-    cp_async16(dst, src);
-    if (sizeof(T) == 8) cp_async16(dst + 2, src + 2);
+    if (sizeof(T) == 2) {
+      cp_async8(dst, src);
+    } else {
+      cp_async16(dst, src);
+      if (sizeof(T) == 8) cp_async16(dst + 2, src + 2);
+    }
     if (group) cp_async8(dst_group, group + i);
   } else {
     dst[0] = dst[1] = dst[2] = dst[3] = T(0);
@@ -373,7 +425,8 @@ int launch(const void* boxes, const void* scores, const unsigned char* valid,
 
 extern "C" {
 
-// Dynamic shared memory one block needs (item: 4 for float32, 8 for float64).
+// Dynamic shared memory one block needs (item: 2 for bfloat16, 4 for float32,
+// 8 for float64).
 long long vidsgg_nms_smem_bytes(int item, int n, int max_keep, int grouped, int ranked) {
   return static_cast<long long>(
       make_layout(static_cast<size_t>(item), n, max_keep, grouped != 0, ranked != 0).total);
@@ -392,6 +445,8 @@ int vidsgg_nms_launch(int item, const void* boxes, const void* scores,
     return launch<float>(boxes, scores, valid, group, keep, rank, g, n, thresh, fill, max_keep, s);
   if (item == 8)
     return launch<double>(boxes, scores, valid, group, keep, rank, g, n, thresh, fill, max_keep, s);
+  if (item == 2)
+    return launch<Bf16>(boxes, scores, valid, group, keep, rank, g, n, thresh, fill, max_keep, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

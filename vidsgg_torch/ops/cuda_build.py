@@ -40,24 +40,29 @@ def nvcc_path() -> str:
 class CudaKernel:
     """One kernel source: builds it once, loads it once, and counts the
     launches its wrappers make: ``launches`` in all, ``launches_by`` per
-    call contract the wrapper names (plain counters; ``reset_counts``)."""
+    call contract the wrapper names, ``launches_by_dtype`` per contract and
+    element type (plain counters; ``reset_counts``)."""
 
     def __init__(self, source: str, declare=None):
         self.source = CSRC_DIR / source
         self._declare_fns = declare
         self.launches = 0
         self.launches_by: dict[str, int] = {}
+        self.launches_by_dtype: dict[str, int] = {}
         self.build_log = ""
         self._lib = None
 
-    def count(self, contract: str):
-        """One launch, made through ``contract``."""
+    def count(self, contract: str, dtype: str | None = None):
+        """One launch, made through ``contract`` (on ``dtype`` elements)."""
         self.launches += 1
         self.launches_by[contract] = self.launches_by.get(contract, 0) + 1
+        key = contract if dtype is None else f"{contract} {dtype}"
+        self.launches_by_dtype[key] = self.launches_by_dtype.get(key, 0) + 1
 
     def reset_counts(self):
         self.launches = 0
         self.launches_by = {}
+        self.launches_by_dtype = {}
 
     def library_path(self) -> Path:
         digest = hashlib.sha256(

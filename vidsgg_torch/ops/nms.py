@@ -7,6 +7,12 @@ the sgdet path goes through :func:`nms_mask_batched` or :func:`grouped_nms`:
 on a CUDA tensor they launch the hand-written kernel ``csrc/nms.cu``; on a
 CPU tensor they run the plain versions beside it (:func:`nms_sorted_plain`).
 Any other device raises.
+
+The grouped call takes bfloat16 boxes and scores in bfloat16 serving (the
+kernel's bfloat16 route: every operation of the IoU rounded to bfloat16,
+as torch and XLA round it, and the threshold rounded to bfloat16, as a
+weak-typed Python float is in JAX); the RPN and class-grid calls stay
+float32.
 """
 
 from __future__ import annotations
@@ -40,8 +46,10 @@ def _declare(lib):
 
 # ``launches`` counts every launch; ``launches_by`` splits them by the
 # caller's contract: "presorted" (the RPN call), "ranked" (ranking inside
-# the call, the class grid: K2's contract) and "grouped"
+# the call, the class grid: K2's contract) and "grouped";
+# ``launches_by_dtype`` by contract and the boxes' dtype ("grouped bfloat16")
 NMS_KERNEL = CudaKernel("nms.cu", declare=_declare)
+KERNEL_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
 
 
 def smem_bytes(n: int, dtype: torch.dtype = torch.float32, max_keep: int | None = None,
@@ -57,14 +65,17 @@ def nms_sorted_plain(boxes: torch.Tensor, valid: torch.Tensor, thresh: float,
                      group: torch.Tensor | None = None) -> torch.Tensor:
     """The plain version: greedy scan over ranked boxes, on any device.
 
-    boxes [G, N, 4] (float32 or float64, kept as given) and valid [G, N]
-    bool, already in rank order -> keep [G, N] bool in the same order. With
+    boxes [G, N, 4] (float32, float64 or bfloat16, kept as given: each
+    operation of the IoU rounds to that type, as torch computes it, and the
+    threshold is taken in that type) and valid [G, N] bool, already in rank
+    order -> keep [G, N] bool in the same order. With
     ``group`` [G, N] a kept box suppresses only boxes of its own group.
     With ``max_keep`` a problem stops at its ``max_keep``-th keep or its
     valid count (exactly its first ``max_keep`` keeps are marked), like the
     kernel.
     """
     g, n = valid.shape
+    thr = torch.tensor(thresh, dtype=boxes.dtype)
     x1, y1, x2, y2 = boxes.unbind(-1)
     area = (x2 - x1 + 1.0) * (y2 - y1 + 1.0)
     suppressed = ~valid
@@ -86,7 +97,7 @@ def nms_sorted_plain(boxes: torch.Tensor, valid: torch.Tensor, thresh: float,
               - torch.maximum(y1, y1[:, i:i + 1]) + 1.0)
         inter = iw.clamp(min=0.0) * ih.clamp(min=0.0)
         iou = inter / (area + area[:, i:i + 1] - inter)
-        hit = (iou > thresh) & (col > i) & is_kept[:, None]
+        hit = (iou > thr) & (col > i) & is_kept[:, None]
         if group is not None:
             hit = hit & (group == group[:, i:i + 1])
         suppressed = suppressed | hit
@@ -98,8 +109,8 @@ def _kernel(boxes, valid, thresh, contract, *, scores=None, fill=0.0, group=None
             max_keep=None, want_rank=False):
     """One launch of ``csrc/nms.cu`` over [G, N] problems on one CUDA device.
 
-    boxes [G, N, 4] float32/float64, valid [G, N] bool, group [G, N] or
-    None. ``scores`` None: the boxes are in rank order. Otherwise the kernel
+    boxes [G, N, 4] float32/float64/bfloat16, valid [G, N] bool, group
+    [G, N] or None. ``scores`` None: the boxes are in rank order. Otherwise the kernel
     ranks them by ``where(valid, scores, fill)``, descending, ties by index
     (N <= ``MAX_RANKED``), marks keep in the input order and, with
     ``want_rank``, returns each box's rank. -> (keep [G, N] bool, rank
@@ -108,9 +119,9 @@ def _kernel(boxes, valid, thresh, contract, *, scores=None, fill=0.0, group=None
     dev = boxes.device
     if not all(t.is_cuda and t.device == dev for t in tensors):
         raise ValueError("the NMS kernel needs all its inputs on one CUDA device")
-    if boxes.dtype not in (torch.float32, torch.float64) or valid.dtype != torch.bool:
-        raise TypeError(f"want float32/float64 boxes and bool valid, got {boxes.dtype}, "
-                        f"{valid.dtype}")
+    if boxes.dtype not in KERNEL_DTYPES or valid.dtype != torch.bool:
+        raise TypeError(f"want float32/float64/bfloat16 boxes and bool valid, got "
+                        f"{boxes.dtype}, {valid.dtype}")
     if scores is not None and scores.dtype != boxes.dtype:
         raise TypeError(f"scores {scores.dtype} differ from boxes {boxes.dtype}")
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or valid.shape != boxes.shape[:2]:
@@ -145,15 +156,18 @@ def _kernel(boxes, valid, thresh, contract, *, scores=None, fill=0.0, group=None
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    # the threshold in the boxes' type (bfloat16(0.6) = 0.6015625), passed
+    # as a value the kernel's type holds exactly
+    thresh = float(torch.tensor(thresh, dtype=boxes.dtype))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.vidsgg_nms_launch(
             boxes.element_size(), boxes.data_ptr(), ptr(scores), valid.data_ptr(),
-            ptr(group), keep.data_ptr(), ptr(rank), g, n, float(thresh), float(fill),
+            ptr(group), keep.data_ptr(), ptr(rank), g, n, thresh, float(fill),
             int(max_keep or 0), stream,
         )
     NMS_KERNEL.check(status, "nms kernel launch")
-    NMS_KERNEL.count(contract)
+    NMS_KERNEL.count(contract, str(boxes.dtype).removeprefix("torch."))
     return keep, rank
 
 
@@ -263,8 +277,8 @@ def grouped_nms(boxes4: torch.Tensor, scores: torch.Tensor, group: torch.Tensor,
     """Greedy NMS of one problem restricted to same-group boxes, the
     contract of ``vidsgg``'s ``postprocess_device._grouped_nms``.
 
-    boxes4 [M, 4] (float32 or float64, IoU in that type), scores [M],
-    group [M] integer ids, valid [M] bool -> (keep [M] bool, rank [M]
+    boxes4 [M, 4] (float32, float64 or bfloat16, IoU in that type), scores
+    [M] of the same type, group [M] integer ids, valid [M] bool -> (keep [M] bool, rank [M]
     int32): ``rank`` is each slot's position in the stable score-descending
     order, invalid slots last in index order. A kept box suppresses a
     later-ranked box of its group whose IoU is strictly greater than

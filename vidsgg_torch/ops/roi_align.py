@@ -9,6 +9,15 @@ samples. The interpolation weights are
 computed in float32 from float32 rois, as in ``vidsgg``; the products are
 plain matrix multiplies (``vidsgg`` leaves them to XLA, not to a kernel).
 
+Types follow ``vidsgg``'s: without a ``compute_dtype`` the product runs in
+the promotion of float32 (the weights) and the features' type, and the
+result is cast to the features' type (bfloat16 union maps pool in float32
+and round once). With ``compute_dtype`` (the bfloat16 detector's box
+pooling) features and weights are cast to it, and so is the product of the
+two axis weights; the product's output is then rounded to that type too,
+where ``vidsgg`` keeps the float32 sum (the head's first convolution
+rounds it to the same value).
+
 Public layout: features ``[B, H, W, C]`` (NHWC, as in ``vidsgg``). A
 permuted view of an NCHW tensor is taken as it is, without a copy, where
 the product allows it.
@@ -81,7 +90,8 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor, out_size: int = 7,
     """
     b, h, w, c = features.shape
     m = out_size
-    flat = features.reshape(b * h, w * c)
+    cdt = torch.promote_types(torch.float32, features.dtype)
+    flat = features.reshape(b * h, w * c).to(cdt)
     rois = rois.float()
     outs = []
     for chunk in torch.split(rois, chunk_size):
@@ -89,9 +99,9 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor, out_size: int = 7,
         ay, ax = _axis_weights(chunk[:, 1:5], m, spatial_scale, max_samples, h, w)
         onehot = F.one_hot(chunk[:, 0].long(), b).to(torch.float32)   # [K, B]
         ay_embed = (onehot[:, None, :, None] * ay[:, :, None, :]).reshape(k * m, b * h)
-        t1 = torch.matmul(ay_embed.to(flat.dtype), flat).reshape(k, m, w, c)
-        out = torch.einsum("kmwc,knw->kmnc", t1, ax.to(t1.dtype))
-        outs.append(out)
+        t1 = torch.matmul(ay_embed.to(cdt), flat).reshape(k, m, w, c)
+        out = torch.einsum("kmwc,knw->kmnc", t1, ax.to(cdt))
+        outs.append(out.to(features.dtype))
     if not outs:
         return features.new_zeros((0, m, m, c))
     return torch.cat(outs, dim=0)
@@ -105,16 +115,18 @@ def roi_align_fused(features: torch.Tensor, rois: torch.Tensor,
 
     The y- and x-rows combine into per-roi bin weights W2 [N*m*m, H*W] and
     pooling is W2 @ F[b] with F[b] viewed as [H*W, C]. ``compute_dtype``
-    (the float64 detector's) is the product's type; the result keeps the
-    features' type, as in ``vidsgg``.
+    (the detector's, when it is not float32) is the product's type; the
+    result keeps the features' type, as in ``vidsgg``.
     """
     b, h, w, c = features.shape
     n = rois.shape[1]
     m = out_size
     out_dtype = features.dtype
-    feats = features if compute_dtype is None else features.to(compute_dtype)
+    cdt = (torch.promote_types(torch.float32, features.dtype) if compute_dtype is None
+           else compute_dtype)
+    feats = features.to(cdt)
     ay, ax = _axis_weights(rois.float(), m, spatial_scale, max_samples, h, w)
-    ay, ax = ay.to(feats.dtype), ax.to(feats.dtype)
+    ay, ax = ay.to(cdt), ax.to(cdt)
     w2 = (ay[:, :, :, None, :, None] * ax[:, :, None, :, None, :]).reshape(
         b, n * m * m, h * w)
     # [B, C, H*W] from the NCHW storage a permuted view carries

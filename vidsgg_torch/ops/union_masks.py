@@ -2,7 +2,8 @@
 
 For each pair of boxes (subject ⊕ object, original-image scale, [P, 8])
 compute the union window, map each box into an SxS grid over it, and write
-the fractional area coverage of the box in each cell.
+the fractional area coverage of the box in each cell. The grid is float32,
+as ``vidsgg``'s ``arange``: bfloat16 boxes give float32 masks.
 """
 
 from __future__ import annotations
@@ -15,14 +16,15 @@ from vidsgg_torch.constants import SPATIAL_MASK_SIZE
 def _rasterize(box: torch.Tensor, union: torch.Tensor, size: int) -> torch.Tensor:
     """Rasterize one box set [..., 4] into [..., size, size] coverage masks."""
     ux1, uy1, ux2, uy2 = union.unbind(-1)
-    w = torch.clamp(ux2 - ux1, min=1e-6)
-    h = torch.clamp(uy2 - uy1, min=1e-6)
+    eps = torch.tensor(1e-6, dtype=union.dtype)      # JAX's weak-typed scalar
+    w = torch.maximum(ux2 - ux1, eps)
+    h = torch.maximum(uy2 - uy1, eps)
     x1 = (box[..., 0] - ux1) * size / w
     y1 = (box[..., 1] - uy1) * size / h
     x2 = (box[..., 2] - ux1) * size / w
     y2 = (box[..., 3] - uy1) * size / h
 
-    grid = torch.arange(size, dtype=box.dtype, device=box.device)
+    grid = torch.arange(size, dtype=torch.float32, device=box.device)
     x_cov = torch.clamp(
         torch.minimum(grid + 1.0, x2[..., None]) - torch.maximum(grid, x1[..., None]),
         0.0, 1.0,

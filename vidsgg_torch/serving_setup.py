@@ -20,10 +20,15 @@ weights (no checkpoint ships), 16-frame 608x1008 videos made from a seed.
   through ``EvalPipeline(mode, cap, needs_union=False)``: the GT-box videos
   with the test CLI's synthetic clip caps (``vidsgg/cli/teatgt_test.py:59``),
   sgdet with the caps its Action Genome source gives a 16-frame bucket.
+* bfloat16 serving: :func:`bf16_detector` is ``bench.py``'s detector
+  (``FasterRCNN(dtype=bfloat16)``, ``bench.py:105-108``) on the same float32
+  weights, and ``build_pipeline(..., compute_dtype=torch.bfloat16)`` the
+  relation stack of ``tempura_test --bf16`` (``vidsgg/cli/tempura_test.py:132``).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -110,20 +115,32 @@ def build_models(device=None, mode: str = "sgdet"):
     return det, rel
 
 
-def build_pipeline(det: FasterRCNN, rel, mode: str = "sgdet"):
+def bf16_detector(det: FasterRCNN) -> FasterRCNN:
+    """A copy of ``det`` with the same float32 weights whose base and head
+    compute in bfloat16 (``bench.py``'s detector)."""
+    out = copy.deepcopy(det)
+    out.set_compute_dtype(torch.bfloat16)
+    return out
+
+
+def build_pipeline(det: FasterRCNN, rel, mode: str = "sgdet",
+                   compute_dtype: torch.dtype | None = None):
     """(frontend, EvalPipeline(mode), ServingState) for TEMPURA or TEAT-GT
     (``needs_union=False``). sgdet: an ``SgdetFrontend`` at
     ``EntryCapacity(16, 256, 48)`` and 32 union pairs per frame; predcls and
-    sgcls: a :class:`GtFrontend` at ``GT_CAP``."""
+    sgcls: a :class:`GtFrontend` at ``GT_CAP``. ``compute_dtype``: the
+    relation stack's serving precision (``torch.bfloat16``)."""
     needs_union = not isinstance(rel, TeatGT)
     if mode == "sgdet":
         cap = EntryCapacity(FRAMES, FRAMES * DETS, 48)
         front = SgdetFrontend(det, SgdetCaps(dets_per_frame=DETS), cap, device=det.device)
         pipe = EvalPipeline("sgdet", cap, needs_union=needs_union,
-                            union_pairs_per_frame=2 * DETS, device=det.device)
+                            union_pairs_per_frame=2 * DETS, device=det.device,
+                            compute_dtype=compute_dtype)
     else:
         front = GtFrontend(det)
-        pipe = EvalPipeline(mode, GT_CAP, needs_union=needs_union, device=det.device)
+        pipe = EvalPipeline(mode, GT_CAP, needs_union=needs_union, device=det.device,
+                            compute_dtype=compute_dtype)
     return front, pipe, create_serving_state(rel)
 
 

@@ -18,6 +18,14 @@ With ``needs_union=False`` (TEAT-GT, which reads object features and
 pairs only) no stage pools union features, and sgdet's overflow comes from
 its postprocess alone.
 
+``compute_dtype`` (``torch.bfloat16``) serves in ``vidsgg``'s
+serving precision: the model's parameters and buffers, both memory banks,
+the entry's floating fields and the feature maps are cast to it
+(:func:`cast_state_for_serving`, :func:`cast_floating`), and each layer
+promotes as ``vidsgg``'s do. The host path then receives bfloat16 values
+(as float32 arrays holding them) and rebuilds a float32 entry, as
+``vidsgg``'s does through ``np.asarray``.
+
 The result is an evaluator-ready NumPy pred dict.
 """
 
@@ -38,10 +46,22 @@ from vidsgg_torch.models.postprocess_device import (
     sgcls_postprocess_device,
     sgdet_postprocess_device,
 )
-from vidsgg_torch.train.state import ServingState
+from vidsgg_torch.train.state import ServingState, cast_state_for_serving
 
 
 MODES = ("predcls", "sgcls", "sgdet")
+
+
+def cast_floating(entry: Entry, dtype: torch.dtype) -> Entry:
+    """The entry with every floating field cast to ``dtype``."""
+    return dataclasses.replace(entry, **{
+        f.name: getattr(entry, f.name).to(dtype) for f in dataclasses.fields(entry)
+        if getattr(entry, f.name).is_floating_point()})
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor on the host; bfloat16 as float32 holding its values."""
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
 def _predcls_stage(state: ServingState, entry: Entry):
@@ -161,6 +181,8 @@ class EvalPipeline:
     # every frame
     union_pairs_per_frame: int = 32
     device: object = None
+    # e.g. torch.bfloat16: vidsgg's serving-precision mode
+    compute_dtype: torch.dtype | None = None
 
     def __post_init__(self):
         # "device" or "host": which route the last call took
@@ -168,6 +190,18 @@ class EvalPipeline:
         if self.mode not in MODES:
             raise NotImplementedError(f"EvalPipeline: mode {self.mode!r} is not ported")
         self.device = resolve_device(self.device)
+        self._cast = None
+
+    def _serving_state(self, state: ServingState) -> ServingState:
+        """The state in ``compute_dtype``. The cast copy is kept while the
+        state's model and banks are the same objects, so later in-place
+        changes to the original parameters do not reach it."""
+        if self.compute_dtype is None:
+            return state
+        src = (state.model, state.rel_memory, state.obj_memory)
+        if self._cast is None or any(a is not b for a, b in zip(self._cast[0], src)):
+            self._cast = (src, cast_state_for_serving(state, self.compute_dtype))
+        return dataclasses.replace(self._cast[1], mem_active=state.mem_active)
 
     @torch.inference_mode()
     def __call__(self, state: ServingState, entry: Entry, fmaps, gt_entry=None):
@@ -183,11 +217,16 @@ class EvalPipeline:
             in the original GT pair order (sgcls, sgdet).
         """
         entry = entry.to(self.device)
+        state = self._serving_state(state)
+        if self.compute_dtype is not None:
+            entry = cast_floating(entry, self.compute_dtype)
         if self.mode == "predcls":
             self.last_route = "device"
             return to_eval_pred(entry, _predcls_stage(state, entry), "predcls")
         if self.needs_union:
             fmaps = torch.as_tensor(fmaps, device=self.device)
+            if self.compute_dtype is not None:
+                fmaps = fmaps.to(self.compute_dtype)
         if self.device_postprocess:
             if self.mode == "sgcls":
                 entry2, out = _sgcls_fused(state, entry, fmaps, self.needs_union)
@@ -205,20 +244,23 @@ class EvalPipeline:
         aux = _classify_stage(state, entry)
         n = int(entry.obj_mask.sum())
         num_frames = int(entry.num_frames)
-        dist = aux["distribution"][:n].cpu().numpy()
+        dist = _host(aux["distribution"][:n])
         o = ObjectsView(
-            boxes=entry.boxes[:n].cpu().numpy(),
+            boxes=_host(entry.boxes[:n]),
             distribution=dist.copy(),
-            features=entry.features[:n].cpu().numpy(),
-            mem_features=aux["object_mem_features"][:n].cpu().numpy(),
+            features=_host(entry.features[:n]),
+            mem_features=_host(aux["object_mem_features"][:n]),
             # sgdet's clean_class reads the detector's labels before OSPU
             # relabeling
             pred_labels=entry.pred_labels[:n].cpu().numpy().astype(np.int64),
             pred_scores=np.zeros(n, np.float32),
             labels=entry.labels[:n].cpu().numpy(),
         )
-        postprocess = sgcls_postprocess if self.mode == "sgcls" else sgdet_postprocess
-        o, human_idx, im_idx, pairs = postprocess(o, num_frames)
+        if self.mode == "sgcls":
+            o, human_idx, im_idx, pairs = sgcls_postprocess(o, num_frames)
+        else:
+            o, human_idx, im_idx, pairs = sgdet_postprocess(
+                o, num_frames, bf16=entry.boxes.dtype == torch.bfloat16)
         eval_cap = EntryCapacity(self.cap.max_frames, self.cap.max_objs,
                                  max(self.cap.max_objs, self.cap.max_pairs))
         entry2, mem = _rebuild_entry(entry, o, human_idx, im_idx, pairs, eval_cap)
@@ -232,9 +274,9 @@ class EvalPipeline:
         if gt_entry is None:
             return pred
         pgt = int(gt_entry.pair_mask.sum())
-        att = gt_entry.attention_gt.cpu().numpy()
-        sp = gt_entry.spatial_gt.cpu().numpy()
-        con = gt_entry.contacting_gt.cpu().numpy()
+        att = _host(gt_entry.attention_gt)
+        sp = _host(gt_entry.spatial_gt)
+        con = _host(gt_entry.contacting_gt)
         pred["attention_gt"] = [[int(x)] for x in att[:pgt]]
         pred["spatial_gt"] = [np.where(r > 0)[0].tolist() for r in sp[:pgt]]
         pred["contacting_gt"] = [np.where(r > 0)[0].tolist() for r in con[:pgt]]

@@ -9,6 +9,7 @@ contacting] rows), the object memory (``obj_memory`` [C-1, D]) and
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import torch
@@ -31,6 +32,19 @@ class ServingState:
     rel_memory: torch.Tensor
     obj_memory: torch.Tensor
     mem_active: torch.Tensor   # [] bool
+
+
+def cast_state_for_serving(state: ServingState, dtype: torch.dtype) -> ServingState:
+    """The serving-precision copy (``vidsgg``'s ``cast_state_for_serving``):
+    a copy of the model with its floating parameters and buffers (the
+    batch-norm statistics, the position table) in ``dtype``, and the two
+    memory banks in ``dtype``. ``state`` itself is left as it is."""
+    return ServingState(
+        model=copy.deepcopy(state.model).to(dtype),
+        rel_memory=state.rel_memory.to(dtype),
+        obj_memory=state.obj_memory.to(dtype),
+        mem_active=state.mem_active,
+    )
 
 
 def create_serving_state(model: nn.Module) -> ServingState:
