@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Drives the port's serving paths, TEMPURA sgdet (the main path, through
-the NMS kernel), predcls and sgcls, and TEAT-GT in all three modes, at
-full width on the CUDA card, scores what they serve with the port's
-evaluator, and fails (nonzero exit, no result line) on any fault:
+the NMS kernel), predcls and sgcls, and TEAT-GT in all three modes, and
+TEMPURA predcls training, at full width on the CUDA card, scores what
+they serve with the port's evaluator, and fails (nonzero exit, no result
+line) on any fault:
 
 1. device: name, count, ``nvidia-smi`` name and power limit; TF32 off;
 2. build: compiles the NMS kernel (``vidsgg_torch/ops/csrc/nms.cu``) with
@@ -87,9 +88,21 @@ evaluator, and fails (nonzero exit, no result line) on any fault:
     float32 run of the same video, R/mR in [0, 1]; the kernel phase also
     times the bfloat16 grouped call, and the CLI phase runs
     ``tempura_test --bf16`` in sgdet over its split;
-11. a ``kernels`` JSON line (K1 and K2, launches per main path: TEMPURA's
-    and TEAT-GT's sgdet videos, in float32 and in bfloat16; K1's calls
-    with the bfloat16 grouped call), then the result line.
+11. TEMPURA predcls training at the published widths (1 + 3 layers,
+    K = 6, joint memory; float32): 2 epochs over the four GT-box videos of
+    5. through ``run_training`` (``train_phase``: the train step, AdamW,
+    the ``unc`` forward and memory fold, the finalize and validation each
+    timed between synchronizes; finite losses, moved parameters, the
+    memory hallucinator untouched through epoch 0 and trained in epoch 1,
+    no NMS launch; two float64 train steps on the card equal to the CPU's
+    within 1e-8 with the same noise), then ``tempura_train`` as a user
+    runs it over an AG-format tree with a train split, ``--resume`` and
+    ``tempura_test --ckpt`` (``train_cli_phase``: the checkpoint files
+    against the states bit for bit, the directory deleted after);
+12. a ``kernels`` JSON line (K1 and K2, launches per main path: TEMPURA's
+    and TEAT-GT's sgdet videos, in float32 and in bfloat16, and TEMPURA
+    predcls training's 0; K1's calls with the bfloat16 grouped call),
+    then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -117,6 +130,7 @@ import torch
 
 from vidsgg_torch import constants as C
 from vidsgg_torch.data import synthetic_video_annotation
+from vidsgg_torch.detector import GtFrontend
 from vidsgg_torch.eval import (
     evaluate_temporal_consistency,
     get_ag_evaluators,
@@ -1214,14 +1228,16 @@ def png_bytes(bgr: np.ndarray) -> bytes:
 
 
 def write_ag_split(root: str, videos: list):
-    """An Action Genome-format test split: annotation pickles in AG's schema
+    """An Action Genome-format tree: annotation pickles in AG's schema
     (person boxes xyxy, object boxes xywh, class and predicate names) from
     stable synthetic annotations of 1 person + 3 objects a frame, and
     random 480x270 PNG frames; ``videos`` lists (seed, frames) per video,
-    in dataset order."""
+    or (seed, frames, split) where the split is not "test", in dataset
+    order."""
     os.makedirs(os.path.join(root, "annotations"))
     person, objects = {}, {}
-    for v, (seed, frames) in enumerate(videos):
+    for v, (seed, frames, *split) in enumerate(videos):
+        split = split[0] if split else "test"
         ann = synthetic_video_annotation(num_frames=frames, objs_per_frame=GT_OBJS_PER_FRAME,
                                          image_wh=AG_WH, stable=True, seed=seed)
         rng = np.random.RandomState(seed)
@@ -1240,7 +1256,7 @@ def write_ag_split(root: str, videos: list):
                 "contacting_relationship": [C.AG_CONTACTING_RELATIONSHIPS[i]
                                             for i in o["contacting_relationship"]],
                 "visible": True,
-                "metadata": {"set": "test"},
+                "metadata": {"set": split},
             } for o in frame[1:]]
             img = rng.randint(0, 256, (AG_WH[1], AG_WH[0], 3), dtype=np.uint8)
             with open(os.path.join(root, "frames", key), "wb") as fh:
@@ -1617,6 +1633,320 @@ def cli_phase(det):
     return results
 
 
+# ---------------------------------------------------------------------------
+# training: TEMPURA predcls through run_training, then the train CLI
+# ---------------------------------------------------------------------------
+
+TRAIN_EPOCHS = 2
+# the memory hallucinator's parameters: untouched while the banks are empty
+HALLUCINATOR = ("glocal_transformer.mem_attention.in_proj_weight",
+                "glocal_transformer.mem_attention.out_proj.weight")
+TRAIN_CARD_CPU_TOL = 1e-8
+# the train CLI's tree: two 16-frame train videos and two test videos
+TRAIN_CLI_VIDEOS = [(500, FRAMES, "train"), (501, FRAMES, "train"),
+                    (510, FRAMES, "test"), (511, FRAMES, "test")]
+
+
+@contextlib.contextmanager
+def patched(module, **attrs):
+    """``module``'s attributes replaced for the block."""
+    old = {k: getattr(module, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
+def synced(fn, sink: list):
+    """``fn`` timed on the host clock between two synchronizes, in ms."""
+    def wrapped(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        sink.append(1e3 * (time.perf_counter() - t0))
+        return out
+    return wrapped
+
+
+def spread(ms: list) -> dict:
+    """The first call, then min / median / max of the others."""
+    rest = sorted(ms[1:]) or ms
+    return dict(calls=len(ms), first=ms[0], min=rest[0], median=rest[len(rest) // 2],
+                max=rest[-1])
+
+
+def adamw_bound(model) -> dict:
+    """The least time of one AdamW update over ``model``: it reads p, g, m
+    and v and writes p, m and v, 7 x the parameters' float32 bytes, at the
+    card's memory rate; its operations (about 15 a parameter) at the
+    float32 rate take a tenth of that."""
+    n = sum(p.numel() for p in model.parameters())
+    return dict(parameters=n, bytes=7 * 4 * n, bound_ms=1e3 * 7 * 4 * n / H100_BYTES_PER_S,
+                ops_ms=1e3 * 15 * n / H100_FP32_FLOPS, bound_by="bytes")
+
+
+def train_phase(det):
+    """TEMPURA predcls training at the published widths (1 encoder + 3
+    decoder layers, K = 6, joint memory; float32, TF32 off) through
+    ``run_training``: 2 epochs over the four GT-box videos of
+    ``serve_gt_phase`` (featurized by the calibrated ResNet-101 first, as a
+    loader would), validated on the same videos. Times each stage between
+    synchronizes: the train step (forward, backward, clip, AdamW) and
+    AdamW alone, the ``unc`` forward and the memory fold, the epoch-end
+    finalize, validation per video; the run's peak memory. Checks: finite
+    losses, moved parameters, the hallucinator untouched through epoch 0
+    and trained in epoch 1, no NMS launch; then two float64 train steps on
+    the card against the CPU with the same noise."""
+    from vidsgg_torch.models.noise import Noise
+    from vidsgg_torch.ops.nms import NMS_KERNEL
+    from vidsgg_torch.serving_setup import GT_CAP, train_steps_card_vs_cpu
+    from vidsgg_torch.train import LossFlags, create_train_state
+    from vidsgg_torch.train import loop as tloop
+    from vidsgg_torch.train.metrics import MetricsWriter
+
+    t0 = time.perf_counter()
+    model = build_relation("predcls", det.device)
+    state = create_train_state(model, steps_per_epoch=len(GT_SEEDS))
+    front = GtFrontend(det)
+    videos = []
+    for seed in GT_SEEDS:
+        ann, skeleton = gt_video(seed, "predcls", det.device)
+        entry, fmaps = front(make_frames(seed, FRAMES, H, W, det.device), skeleton)
+        videos.append((entry, fmaps, ann))
+    params = dict(model.named_parameters())
+    initial = {k: v.detach().clone() for k, v in params.items()}
+    torch.cuda.synchronize()
+    log(f"[train] TEMPURA {model.cfg}, {sum(p.numel() for p in model.parameters())} "
+        f"parameters, and {len(videos)} featurized videos ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    times = {k: [] for k in ("train_step", "adamw", "unc_forward", "memory_fold", "finalize",
+                             "validation")}
+    metrics, saved, epoch0 = [], [], {}
+    base_step, base_finalize = tloop.make_train_step, tloop.finalize_memory
+
+    def make_train_step(flags):
+        step = synced(base_step(flags), times["train_step"])
+
+        def train_step(st, entry, noise):
+            metrics.append(step(st, entry, noise))
+            return metrics[-1]
+        return train_step
+
+    def finalize(*args):
+        if not epoch0:   # the end of epoch 0: the hallucinator has not moved
+            epoch0["counts"] = {n: state.optimizer.state[params[n]]["step"].tolist()
+                                for n in HALLUCINATOR}
+            epoch0["equal"] = all(torch.equal(params[n], initial[n]) for n in HALLUCINATOR)
+        return synced(base_finalize, times["finalize"])(*args)
+
+    class TimedPipeline(tloop.EvalPipeline):
+        def __call__(self, *args, **kw):
+            return synced(super().__call__, times["validation"])(*args, **kw)
+
+    state.optimizer.step = synced(state.optimizer.step, times["adamw"])
+    cfg = tloop.TrainLoopConfig(mode="predcls", nepoch=TRAIN_EPOCHS, log_iter=len(videos))
+    with tempfile.TemporaryDirectory(prefix="train_log_") as logdir, \
+            patched(tloop, make_train_step=make_train_step,
+                    eval_step=synced(tloop.eval_step, times["unc_forward"]),
+                    accumulate_memory=synced(tloop.accumulate_memory, times["memory_fold"]),
+                    finalize_memory=finalize, EvalPipeline=TimedPipeline,
+                    save_checkpoint=lambda path, st, name: saved.append(name)), \
+            contextlib.redirect_stdout(io.StringIO()) as out:
+        writer = MetricsWriter(logdir)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        NMS_KERNEL.reset_counts()
+        t0 = time.perf_counter()
+        state = tloop.run_training(state, LossFlags(), cfg, lambda: iter(videos),
+                                   lambda: iter(videos), GT_CAP, writer,
+                                   Noise.seeded(1, det.device), model_cfg=model.cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        writer.close()
+    peak = torch.cuda.max_memory_allocated()
+    launches = NMS_KERNEL.launches
+    del state.optimizer.step
+    for line in out.getvalue().splitlines():
+        log(f"[train] {line}")
+    host = torch.stack([torch.stack(list(m.values())) for m in metrics]).cpu()
+    if not bool(torch.isfinite(host).all()):
+        raise AssertionError(f"train: non-finite losses {host.tolist()}")
+    moved = [k for k, p in params.items() if not torch.equal(p, initial[k])]
+    if len(moved) < 0.9 * len(params):
+        raise AssertionError(f"train: only {len(moved)} of {len(params)} parameters moved")
+    if not epoch0.get("equal") or any(set(c) != {0} for c in epoch0["counts"].values()):
+        raise AssertionError(f"train: the hallucinator moved in epoch 0: {epoch0}")
+    hall = {n: state.optimizer.state[params[n]]["step"].tolist() for n in HALLUCINATOR}
+    if any(torch.equal(params[n], initial[n]) for n in HALLUCINATOR) or any(
+            set(c) != {len(videos)} for c in hall.values()):
+        raise AssertionError(f"train: the hallucinator did not train in epoch 1: {hall}")
+    if launches != 0:
+        raise AssertionError(f"train: {launches} NMS kernel launches, want 0")
+    if saved[0] != "checkpoint_0" or saved[-1] != "checkpoint_final":
+        raise AssertionError(f"train: checkpoints {saved}")
+    err = train_steps_card_vs_cpu(det.device)
+    if err > TRAIN_CARD_CPU_TOL:
+        raise AssertionError(f"train: float64 steps on the card differ from the CPU's by {err}")
+    result = dict(
+        videos=len(videos), epochs=TRAIN_EPOCHS, wall_s=wall,
+        ms_per_video=1e3 * wall / (TRAIN_EPOCHS * len(videos)),
+        stages_ms={k: spread(v) for k, v in times.items()},
+        peak_memory_bytes=peak, before_run_bytes=before, nms_launches=launches,
+        checkpoints=saved, adamw=adamw_bound(model), moved_parameters=len(moved),
+        losses={k: host[:, i].tolist() for i, k in enumerate(metrics[0])},
+        hallucinator_counts={"epoch 0": epoch0["counts"], "end": hall},
+        float64_card_vs_cpu_max_rel_err=err)
+    log(f"[train] {TRAIN_EPOCHS} epochs x {len(videos)} videos in {wall:.2f} s "
+        f"({result['ms_per_video']:.1f} ms per trained video, validation and the stage "
+        f"synchronizes included), peak {peak} bytes ({peak / 2**30:.2f} GiB; {before} before "
+        f"the run), NMS launches {launches}, {len(moved)} of {len(params)} parameters moved; "
+        f"float64 steps card vs CPU: max rel err {err:.3g} (tolerance {TRAIN_CARD_CPU_TOL})")
+    for k, v in result["stages_ms"].items():
+        log(f"[train]   {k} ms: " + json.dumps(v))
+    log(f"[train]   AdamW bound: " + json.dumps(result["adamw"]))
+    del model, state, videos, initial, params
+    torch.cuda.empty_cache()
+    return result
+
+
+def run_train_cli(argv: list) -> tuple:
+    """``vidsgg_torch.cli.tempura_train.main(argv)`` with its output kept:
+    (final state, stdout, seconds)."""
+    from vidsgg_torch.cli import tempura_train
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        state = tempura_train.main(list(argv))
+    torch.cuda.synchronize()
+    return state, out.getvalue(), time.perf_counter() - t0
+
+
+def same_state(model, banks: dict, payload: dict, what: str, optimizer=None, step=None):
+    """The model's state_dict, the banks (and the optimizer's state and the
+    step) bit for bit equal to a checkpoint payload's."""
+    sd = model.state_dict()
+    if sorted(sd) != sorted(payload["model"]):
+        raise AssertionError(f"{what}: model keys differ")
+    bad = [k for k, v in sd.items() if not torch.equal(v, payload["model"][k])]
+    bad += [k for k, v in banks.items() if not torch.equal(v, payload[k])]
+    if optimizer is not None:
+        want = payload["optimizer"]
+        got = optimizer.state_dict()
+        if got["updates"] != want["updates"] or step != payload["step"]:
+            bad.append("updates/step")
+        for i, st in got["state"].items():
+            bad += [f"optimizer {i} {k}" for k, v in st.items()
+                    if not torch.equal(v, want["state"][i][k])]
+    if bad:
+        raise AssertionError(f"{what}: differs from the checkpoint in {bad[:8]}")
+
+
+def train_cli_phase(det):
+    """``tempura_train`` as a user runs it: an AG-format tree with a train
+    split (two 16-frame videos) and a test split (two), random 480x270
+    PNGs, the calibrated detector as a jwyang ``.pth``, default TEMPURA
+    (1 + 3 layers, K = 6), one epoch, checkpoints on disk. Then ``--resume``
+    (restores ``best_recall``: the state must equal the file's bit for bit)
+    and ``tempura_test --ckpt ... --ckpt_name checkpoint_final`` (the served
+    model and banks must equal the file's, which must equal the train run's
+    final state). The checkpoint directory is deleted at the end."""
+    import shutil
+
+    from vidsgg_torch.cli import tempura_test
+    from vidsgg_torch.ops.nms import NMS_KERNEL
+    from vidsgg_torch.train.checkpoint import checkpoint_file, load_payload
+
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="ag_train_") as tmp:
+        root = os.path.join(tmp, "ag")
+        write_ag_split(root, TRAIN_CLI_VIDEOS)
+        pth = os.path.join(tmp, "faster_rcnn_ag.pth")
+        torch.save({"model": det.state_dict()}, pth)
+        save = os.path.join(tmp, "checkpoints")
+        common = ["--mode", "predcls", "--data_path", root, "--model_path", pth,
+                  "--frame_size", str(CLI_FRAME_SIZE)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        NMS_KERNEL.reset_counts()
+        state, text, seconds = run_train_cli(common + ["--nepoch", "1", "-log_iter", "1",
+                                                       "--save_path", save])
+        peak = torch.cuda.max_memory_allocated()
+        per_video = [float(x) for x in re.findall(r"^epoch 0 step \d+  ([0-9.]+)s/video", text, re.M)]
+        if len(per_video) != 2 or NMS_KERNEL.launches != 0:
+            raise AssertionError(f"tempura_train: {len(per_video)} step lines, NMS launches "
+                                 f"{NMS_KERNEL.launches}: {text[-800:]}")
+        files = sorted(os.listdir(save))
+        log(f"[train cli] tempura_train: {seconds:.1f} s, s/video per step line {per_video}, "
+            f"peak {peak} bytes ({(peak - before) / 2**30:.2f} GiB its own), files {files}")
+        for line in text.splitlines():
+            if line.startswith(("epoch", "new best", ">>>")):
+                log(f"[train cli]   {line}")
+        sizes = {f: os.path.getsize(os.path.join(save, f)) for f in files}
+        final = load_payload(save, "checkpoint_final", det.device)
+        same_state(state.model, {"rel_memory": state.rel_memory, "obj_memory": state.obj_memory,
+                                 "mem_active": state.mem_active}, final,
+                   "checkpoint_final against the train run's state", state.optimizer, state.step)
+        del state
+        # --resume reads best_recall and trains no further epoch
+        resumed, text2, seconds2 = run_train_cli(common + ["--nepoch", "0", "--resume", save,
+                                                           "--save_path",
+                                                           os.path.join(tmp, "resumed")])
+        best = load_payload(save, "best_recall", det.device)
+        same_state(resumed.model, {"rel_memory": resumed.rel_memory,
+                                   "obj_memory": resumed.obj_memory,
+                                   "mem_active": resumed.mem_active}, best,
+                   "--resume against best_recall", resumed.optimizer, resumed.step)
+        line = re.search(r"^resumed from .* at step (\d+)$", text2, re.M)
+        if line is None or int(line.group(1)) != best["step"]:
+            raise AssertionError(f"--resume printed no resume line: {text2[-500:]}")
+        del resumed, best
+        # tempura_test serves checkpoint_final
+        served = {}
+        restore = tempura_test.restore_serving
+
+        def keep(s, payload):
+            served["state"] = restore(s, payload)
+            return served["state"]
+
+        with patched(tempura_test, restore_serving=keep):
+            evs, text3, n, seconds3 = run_cli(common + [
+                "--ckpt", save, "--ckpt_name", "checkpoint_final",
+                "--output_path", os.path.join(tmp, "out")])
+        s = served["state"]
+        same_state(s.model, {"rel_memory": s.rel_memory, "obj_memory": s.obj_memory,
+                             "mem_active": s.mem_active}, final,
+                   "tempura_test --ckpt against checkpoint_final")
+        if "restored checkpoint checkpoint_final" not in text3 or n != 2:
+            raise AssertionError(f"tempura_test --ckpt: {text3[-500:]}")
+        bad = {f"{ev.constraint} {m}@{k}": f(k) for ev in evs for k in ev.KS
+               for m, f in (("R", ev.recall_at), ("mR", ev.mean_recall_at))
+               if not (np.isfinite(f(k)) and 0 <= f(k) <= 1)}
+        if bad:
+            raise AssertionError(f"tempura_test --ckpt: R/mR outside [0, 1]: {bad}")
+        del served, s, final
+        shutil.rmtree(save)
+        if os.path.exists(save):
+            raise AssertionError("the checkpoint directory was not deleted")
+        results = dict(train_seconds=seconds, s_per_video_lines=per_video,
+                       own_peak_bytes=peak - before, checkpoint_bytes=sizes,
+                       resume_seconds=seconds2, test_seconds=seconds3,
+                       test_r20={ev.constraint: ev.recall_at(20) for ev in evs})
+        log(f"[train cli] --resume equal to best_recall bit for bit ({seconds2:.1f} s); "
+            f"tempura_test --ckpt served checkpoint_final, equal to it and to the train run's "
+            f"state bit for bit ({seconds3:.1f} s); checkpoint directory deleted")
+    torch.cuda.empty_cache()
+    log("[train cli] " + json.dumps(results))
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the card only", file=sys.stderr)
@@ -1663,6 +1993,8 @@ def main() -> int:
     del videos
     torch.cuda.empty_cache()
     cli_phase(det)
+    train = train_phase(det)
+    train_cli = train_cli_phase(det)
     # launches on the main paths: TEMPURA's and TEAT-GT's sgdet videos, in
     # float32 and in bfloat16
     paths = {"tempura sgdet": rows, "teatgt sgdet": teatgt_runs["sgdet"]["videos"]}
@@ -1673,6 +2005,9 @@ def main() -> int:
                        for k, v in paths.items()}
     ranked_launches.update({k: sum(r["launches_by_dtype"].get("ranked float32", 0) for r in v)
                             for k, v in bf16_paths.items()})
+    # TEMPURA predcls training reaches no NMS
+    launches["tempura predcls train"] = ranked_launches["tempura predcls train"] = \
+        train["nms_launches"]
 
     def entry(name, replaces, call_names, launched, err, more_calls=()):
         sel = [timings[c] for c in call_names]
@@ -1713,6 +2048,8 @@ def main() -> int:
     for build, run in bf16_runs.items():
         log(f"[bf16 {build}] " + json.dumps(run))
     log("[score] " + json.dumps(scores))
+    log("[train] " + json.dumps(train))
+    log("[train cli] " + json.dumps(train_cli))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": count}}),

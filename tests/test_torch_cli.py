@@ -19,6 +19,7 @@ box deltas, which amplifies the convolutions' 1e-4 relative difference.
 
 import re
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -32,12 +33,15 @@ from cli_parity_utils import (
     stats,
     synthetic_head,
 )
-from torch_parity_utils import assert_pred_equal, write_ag_tree
+from torch_parity_utils import assert_pred_equal, random_tree, write_ag_tree
 
+import vidsgg.cli.tempura_test as jcli
 import vidsgg_torch.cli.data_source as tds
 import vidsgg_torch.cli.tempura_test as tcli
 from vidsgg_torch.configs import TempuraRunConfig
+from vidsgg_torch.convert import tempura_from_jax
 from vidsgg_torch.eval.adapter import BF16_FIELDS
+from vidsgg_torch.train.checkpoint import FORMAT
 
 @pytest.fixture(scope="module")
 def ag_root(tmp_path_factory):
@@ -81,9 +85,52 @@ def test_cli_matches_vidsgg_on_synthetic_videos(tmp_path, monkeypatch, capsys):
     assert pickles(tmp_path / "port") == pickles(tmp_path / "jax")
 
 
+def test_ckpt_cli_matches_vidsgg(tmp_path, monkeypatch, capsys):
+    """``--ckpt DIR --ckpt_name NAME``: both CLIs serve a checkpoint's
+    weights and both banks (``mem_active``: the hallucinator attends). The
+    two restores are replaced by the same seeded checkpoint: ``vidsgg``'s
+    (orbax) returns it as its train state, the port's loader as its payload
+    (the weights converted by ``tempura_from_jax``). Compared as
+    ``test_cli_matches_vidsgg_on_synthetic_videos``, plus the restore line."""
+    argv = ["--mode", "predcls", "--synthetic", "2", "--ckpt", "ckpts",
+            "--ckpt_name", "checkpoint_final"] + TEMPURA_FLAGS
+    restored = {}
+
+    def jax_restore(path, state, name):
+        assert (path, name) == ("ckpts", "checkpoint_final")
+        rng = np.random.default_rng(23)
+        shapes = jax.tree.map(lambda a: jax.ShapeDtypeStruct(np.shape(a), np.float32),
+                              state.params)
+        restored["state"] = state.replace(
+            params=random_tree(shapes, rng), rel_memory=rng.standard_normal((26, 1936)).astype(
+                np.float32), obj_memory=rng.standard_normal((36, 1024)).astype(np.float32),
+            mem_active=np.bool_(True))
+        return restored["state"]
+
+    def port_load(path, name, device=None):
+        assert (path, name) == ("ckpts", "checkpoint_final")
+        s = restored["state"]
+        tcfg = TempuraRunConfig.from_args(["--mode", "predcls"] + TEMPURA_FLAGS).model_config()
+        return {"format": FORMAT,
+                "model": tempura_from_jax({"params": s.params, "batch_stats": s.batch_stats}, tcfg),
+                "rel_memory": torch.from_numpy(s.rel_memory),
+                "obj_memory": torch.from_numpy(s.obj_memory), "mem_active": torch.tensor(True)}
+
+    monkeypatch.setattr(jcli, "restore_checkpoint", jax_restore)
+    jax_evs, jax_out, jax_run = run_vidsgg_tempura(
+        monkeypatch, capsys, argv + ["--output_path", str(tmp_path / "jax")])
+    monkeypatch.setattr(tcli, "load_payload", port_load)
+    synthetic_head(monkeypatch)
+    port_evs, port_out, _, port_preds = run_port_tempura(
+        monkeypatch, capsys, argv + ["--output_path", str(tmp_path / "port")], jax_run)
+    line = "restored checkpoint checkpoint_final from ckpts (incl. memory banks)"
+    assert line in jax_out.splitlines() and line in port_out.splitlines()
+    assert_same_run(jax_evs, jax_out, port_evs, port_out)
+    assert_same_preds(port_preds, jax_run["preds"])
+    assert pickles(tmp_path / "port") == pickles(tmp_path / "jax")
+
+
 @pytest.mark.parametrize("flags", [
-    ["--ckpt", "some/dir"],
-    ["--ckpt_name", "best_recall"],
     ["--int8"],
     ["--profile", "trace/"],
     ["--pair_detect", "2"],

@@ -414,3 +414,20 @@ def test_teatgt_predcls_card_float32_matches_cpu_float64(cuda_device, gt_models)
               "contacting_distribution"):
         scale = max(1.0, float(np.abs(want[k]).max()))
         np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-4 * scale, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_float64_train_steps_on_the_card_match_cpu(cuda_device):
+    """Two predcls train steps of a one-layer TEMPURA (the second with
+    filled memory banks) in float64 on the card and on the CPU, the CPU's
+    dropout masks and GMM noise replayed on the card: every loss, gradient
+    norm, bank, parameter and batch-norm statistic within 1e-8 x max(1,
+    max|CPU's|)."""
+    from vidsgg_torch.serving_setup import train_steps_card_vs_cpu
+
+    assert train_steps_card_vs_cpu(cuda_device) <= 1e-8

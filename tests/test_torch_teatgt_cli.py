@@ -149,8 +149,8 @@ def test_cli_matches_vidsgg_on_synthetic_videos(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--ckpt", "some/dir"], "item 5a"),
-    (["--ckpt_name", "best_recall"], "item 5a"),
+    (["--ckpt", "some/dir"], "item 6b"),
+    (["--ckpt_name", "best_recall"], "item 6b"),
     (["--int8"], "item 7b"),
     (["--profile", "trace/"], "item 7b"),
     (["--rand_node_id"], "item 6c"),

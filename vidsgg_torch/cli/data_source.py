@@ -1,4 +1,4 @@
-"""Video sources for the test CLI (the single-device serving parts of
+"""Video sources for the train and test CLIs (the single-device parts of
 ``vidsgg/cli/data_source.py``).
 
 Each source is a callable returning an iterator of (entry, fmaps,
@@ -34,7 +34,7 @@ from vidsgg_torch.device import resolve_device
 
 # what is not ported yet, by ROADMAP.md queue 1 item
 PAIRED_SERVING = "ROADMAP.md queue 1 item 7b (paired and data-parallel serving)"
-TRAINING = "ROADMAP.md queue 1 item 5b (sgdet training)"
+SGDET_TRAINING = "ROADMAP.md queue 1 item 5b (sgdet training)"
 
 
 @dataclasses.dataclass
@@ -126,10 +126,13 @@ def synthetic_head_weight() -> torch.Tensor:
     return torch.randn((1024, 2048), generator=torch.Generator().manual_seed(7)) * 0.02
 
 
-def make_synthetic_source(n_videos: int, cap: EntryCapacity, seed: int, device=None):
-    """Callable returning an iterator of (entry, fmaps, gt_annotation), in
-    video order; each video has 6 frames of 2 objects, stable across
-    frames."""
+def make_synthetic_source(n_videos: int, cap: EntryCapacity, seed: int = 0,
+                          shuffle: bool = True, stable: bool = False, device=None):
+    """Callable returning an iterator of (entry, fmaps, gt_annotation); each
+    video has 6 frames of 2 objects (``stable``: the same objects in every
+    frame). With ``shuffle`` each call takes a new order from NumPy's
+    global random state, as ``vidsgg``'s does. Entries are built under
+    ``no_grad`` (a train step can save them for backward)."""
     dev = resolve_device(device)
     w = synthetic_head_weight().to(dev)
 
@@ -139,13 +142,13 @@ def make_synthetic_source(n_videos: int, cap: EntryCapacity, seed: int, device=N
     videos = []
     for i in range(n_videos):
         ann = synthetic_video_annotation(
-            num_frames=6, objs_per_frame=2, seed=seed * 10007 + i, stable=True,
+            num_frames=6, objs_per_frame=2, seed=seed * 10007 + i, stable=stable,
         )
         entry = build_gt_entry(ann, cap, device=dev)
         fmaps = torch.from_numpy(
             synthetic_base_fmaps(cap.max_frames, hw=(12, 20), seed=seed * 31 + i)
         ).to(dev)
-        with torch.inference_mode():
+        with torch.no_grad():
             entry = featurize_gt_entry(entry, fmaps, head)
         # detector-style class scores biased toward GT (sgcls/sgdet input)
         rng = np.random.RandomState(i)
@@ -158,7 +161,9 @@ def make_synthetic_source(n_videos: int, cap: EntryCapacity, seed: int, device=N
         videos.append((entry, fmaps, ann))
 
     def source():
-        yield from videos
+        order = np.random.permutation(n_videos) if shuffle else np.arange(n_videos)
+        for i in order:
+            yield videos[i]
 
     return source
 
@@ -173,22 +178,28 @@ def _canvas(h: int, w: int, canvases):
 
 
 def make_ag_source(dataset, buckets: list[EntryCapacity], detector: FasterRCNN,
-                   max_videos: int | None = None, canvases=DEFAULT_CANVASES):
+                   shuffle: bool = True, seed: int = 1123, max_videos: int | None = None,
+                   canvases=DEFAULT_CANVASES):
     """Action Genome source (predcls/sgcls GT-box path) on the detector's
-    device, in dataset order.
+    device.
 
-    Each video is padded to the smallest covering bucket of ``buckets``
-    (ascending capacities); videos that exceed every bucket are skipped.
-    The base runs over all of the bucket's (zero-padded) frames.
+    With ``shuffle`` each call (epoch) takes the next permutation of a
+    ``RandomState(seed)`` made with the source, as ``vidsgg``'s does;
+    otherwise dataset order. Each video is padded to the smallest covering
+    bucket of ``buckets`` (ascending capacities); videos that exceed every
+    bucket are skipped. The base runs over all of the bucket's (zero-padded)
+    frames.
     """
     dev = detector.device
     front = GtFrontend(detector)
+    rng = np.random.RandomState(seed)
     stats = SourceStats()
 
     def source():
         stats.reset()
         n = len(dataset) if max_videos is None else min(max_videos, len(dataset))
-        for i in range(n):
+        order = rng.permutation(len(dataset))[:n] if shuffle else np.arange(n)
+        for i in order:
             ann = dataset.gt_annotations[i]
             vid_cap = pick_bucket(buckets, *video_counts(ann))
             if vid_cap is None:
@@ -311,7 +322,7 @@ def make_sgdet_source(
     frames' detections. Single-video serving only.
     """
     if is_train:
-        raise NotImplementedError(f"sgdet training sources are not ported yet: {TRAINING}")
+        raise NotImplementedError(f"sgdet training sources are not ported yet: {SGDET_TRAINING}")
     if pair_detect > 1:
         raise NotImplementedError(f"pair_detect > 1 is not ported yet: {PAIRED_SERVING}")
     stats = SourceStats()

@@ -41,7 +41,7 @@ from vidsgg_torch.models.graph_build import ClipCaps
 from vidsgg_torch.models.tokengt import RANDOM_DRAWS
 from vidsgg_torch.train import EvalPipeline, ServingState, create_serving_state
 
-CHECKPOINTS = "ROADMAP.md queue 1 item 5a (the port's checkpoints)"
+CHECKPOINTS = "ROADMAP.md queue 1 item 6b (TEAT-GT training and its checkpoints)"
 SURFACE = "ROADMAP.md queue 1 item 7b"
 
 
@@ -89,7 +89,8 @@ def main(argv=None):
     cap = EntryCapacity(max_frames=16, max_objs=48, max_pairs=32)
     clips = SYNTHETIC_CLIPS
     if synthetic:
-        src = data_source.make_synthetic_source(synthetic, cap, seed=99, device=device)
+        src = data_source.make_synthetic_source(synthetic, cap, seed=99, shuffle=False,
+                                                  stable=True, device=device)
     else:
         buckets = data_source.default_buckets(max_frames=cfg.bucket_frames)
         cap = buckets[-1]
@@ -104,7 +105,8 @@ def main(argv=None):
             src = data_source.make_sgdet_source(ds, cap, frontend, max_videos=max_videos,
                                                 canvases=canvases)
         else:
-            src = data_source.make_ag_source(ds, buckets, det, max_videos=max_videos,
+            src = data_source.make_ag_source(ds, buckets, det, shuffle=False,
+                                             max_videos=max_videos,
                                              canvases=canvases)
 
     state = build_relation_state(cfg, clips, device)

@@ -17,7 +17,9 @@ sharded sgdet serving, and the other flags whose machinery is not ported
 yet, exit with a message naming the ``ROADMAP.md`` item that brings it.
 ``--bf16`` serves the relation stack in bfloat16 (``EvalPipeline(
 compute_dtype=torch.bfloat16)``) behind the float32 detector, as
-``vidsgg``'s does.
+``vidsgg``'s does. ``--ckpt DIR [--ckpt_name NAME]`` serves the model and
+both memory banks of ``DIR/NAME.pt`` (default ``best_recall``), a
+checkpoint of the port's train CLI.
 """
 
 from __future__ import annotations
@@ -42,14 +44,14 @@ from vidsgg_torch.eval import (
 )
 from vidsgg_torch.models import Tempura
 from vidsgg_torch.train import EvalPipeline, ServingState, create_serving_state
+from vidsgg_torch.train.checkpoint import load_payload, restore_serving
 
-CHECKPOINTS = "ROADMAP.md queue 1 item 5a (the port's checkpoints)"
 SURFACE = "ROADMAP.md queue 1 item 7b"
 
 
 def build_relation_state(cfg: TempuraRunConfig, device) -> ServingState:
     """TEMPURA for ``cfg`` with random weights from seed 0 and empty memory
-    banks (no checkpoint restore yet)."""
+    banks (``--ckpt`` then restores a checkpoint into it)."""
     model = Tempura(cfg.model_config(), device=device,
                     generator=torch.Generator().manual_seed(0))
     return create_serving_state(model)
@@ -62,12 +64,10 @@ def main(argv=None):
     synthetic = take_flag(argv, "--synthetic", int, 0)
     max_videos = take_flag(argv, "--max_videos", int)
     ckpt = take_flag(argv, "--ckpt")
-    ckpt_name = take_flag(argv, "--ckpt_name")
+    ckpt_name = take_flag(argv, "--ckpt_name", str, "best_recall")
     profile_dir = take_flag(argv, "--profile")
     cfg = TempuraRunConfig.from_args(argv)
     refuse_unported("tempura_test", [
-        (ckpt is not None, "--ckpt", CHECKPOINTS),
-        (ckpt_name is not None, "--ckpt_name", CHECKPOINTS),
         (cfg.int8, "--int8", f"{SURFACE} (int8 serving)"),
         (profile_dir is not None, "--profile", f"{SURFACE} (profiling)"),
     ])
@@ -77,7 +77,8 @@ def main(argv=None):
 
     cap = EntryCapacity(max_frames=16, max_objs=48, max_pairs=32)
     if synthetic:
-        src = data_source.make_synthetic_source(synthetic, cap, seed=99, device=device)
+        src = data_source.make_synthetic_source(synthetic, cap, seed=99, shuffle=False,
+                                                  stable=True, device=device)
     else:
         buckets = data_source.default_buckets(max_frames=cfg.bucket_frames)
         cap = buckets[-1]
@@ -91,10 +92,14 @@ def main(argv=None):
             src = data_source.make_sgdet_source(ds, cap, frontend, max_videos=max_videos,
                                                 canvases=canvases)
         else:
-            src = data_source.make_ag_source(ds, buckets, det, max_videos=max_videos,
+            src = data_source.make_ag_source(ds, buckets, det, shuffle=False,
+                                             max_videos=max_videos,
                                              canvases=canvases)
 
     state = build_relation_state(cfg, device)
+    if ckpt:
+        state = restore_serving(state, load_payload(ckpt, ckpt_name, device))
+        print(f"restored checkpoint {ckpt_name} from {ckpt} (incl. memory banks)")
     # one pipeline at the largest bucket serves every bucket: its stages
     # take their sizes from the entry they are given. sgdet's device
     # postprocess doubles the object axis, so pairs per frame are bounded

@@ -1,0 +1,134 @@
+"""TEMPURA training CLI (the reference's TEMPURA_train.py; the port's
+counterpart of ``vidsgg/cli/tempura_train.py``).
+
+    python -m vidsgg_torch.cli.tempura_train --mode predcls --data_path AG/
+
+Trains on the Action Genome train split (GT boxes through the frozen
+detector; ``--model_path`` loads a jwyang Faster R-CNN checkpoint) or on
+``--synthetic N`` videos, validating on the test split every epoch, and
+writes the port's checkpoints to ``--save_path``. ``--resume DIR``
+restores ``DIR/best_recall.pt`` (model, optimizer, step, banks) first. It
+runs on the CUDA card, and raises without one; ``--device cpu`` runs on
+the CPU. predcls only: sgcls, sgdet, ``--data_parallel > 1``, ``--int8``
+and ``--profile`` exit naming the ``ROADMAP.md`` item that brings them.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import torch
+
+from vidsgg_torch.cli import data_source
+from vidsgg_torch.cli.flags import refuse_unported, take_flag
+from vidsgg_torch.configs.tempura import TempuraRunConfig
+from vidsgg_torch.data.action_genome import ActionGenome
+from vidsgg_torch.data.entry import EntryCapacity
+from vidsgg_torch.device import resolve_device
+from vidsgg_torch.models import Tempura
+from vidsgg_torch.models.embeddings import word_vectors_available
+from vidsgg_torch.models.noise import Noise
+from vidsgg_torch.runtime.prefetch import prefetch
+from vidsgg_torch.train import create_train_state
+from vidsgg_torch.train.checkpoint import restore_checkpoint
+from vidsgg_torch.train.loop import TrainLoopConfig, run_training
+from vidsgg_torch.train.metrics import MetricsWriter
+
+SGCLS = "ROADMAP.md queue 1 item 5a-ii (sgcls training)"
+SGDET = "ROADMAP.md queue 1 item 5b (sgdet training)"
+SURFACE = "ROADMAP.md queue 1 item 7b"
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    device_flag = take_flag(argv, "--device")
+    synthetic = take_flag(argv, "--synthetic", int, 0)
+    resume = take_flag(argv, "--resume")
+    profile_dir = take_flag(argv, "--profile")
+    word_vectors = take_flag(argv, "--word_vectors")
+    if word_vectors:  # models resolve the asset through the env var
+        os.environ["VIDSGG_WORD_VECTORS"] = word_vectors
+    cfg = TempuraRunConfig.from_args(argv)
+    refuse_unported("tempura_train", [
+        (cfg.mode == "sgcls", "--mode sgcls", SGCLS),
+        (cfg.mode == "sgdet", "--mode sgdet", SGDET),
+        (cfg.data_parallel > 1, "--data_parallel", f"{SURFACE} (data-parallel training)"),
+        (cfg.int8, "--int8", f"{SURFACE} (int8)"),
+        (profile_dir is not None, "--profile", f"{SURFACE} (profiling)"),
+    ])
+    device = resolve_device(device_flag)
+    print(f">>> TEMPURA train: mode={cfg.mode} synthetic={synthetic or 'off'}")
+
+    wv_ok, wv_path = word_vectors_available()
+    if wv_ok:
+        print(f"word vectors: {wv_path}")
+    else:
+        print("WARNING: no GloVe word-vector asset (--word_vectors / "
+              "VIDSGG_WORD_VECTORS unset); label-embedding tables "
+              "pseudo-init — from-scratch training differs from the "
+              "reference's glove.6B.200d init")
+
+    cap = EntryCapacity(max_frames=16, max_objs=48, max_pairs=32)
+    if synthetic:
+        train_src = data_source.make_synthetic_source(synthetic, cap, seed=cfg.seed,
+                                                      device=device)
+        val_src = data_source.make_synthetic_source(max(4, synthetic // 4), cap,
+                                                    seed=cfg.seed + 1, shuffle=False,
+                                                    device=device)
+        steps_per_epoch = synthetic
+    else:
+        # ascending per-video-size buckets: bounded padding, no silent drops
+        # below the largest bucket
+        buckets = data_source.default_buckets(max_frames=cfg.bucket_frames)
+        cap = buckets[-1]
+        train_ds = ActionGenome("train", cfg.datasize, cfg.data_path,
+                                filter_small_box=cfg.mode != "predcls",
+                                target_min_side=cfg.frame_size)
+        test_ds = ActionGenome("test", cfg.datasize, cfg.data_path,
+                               filter_small_box=cfg.mode != "predcls",
+                               target_min_side=cfg.frame_size)
+        det, canvases = data_source.build_detector(
+            cfg.model_path, tiny=cfg.tiny_detector, frame_size=cfg.frame_size, device=device)
+        train_src = data_source.make_ag_source(train_ds, buckets, det, seed=cfg.seed,
+                                               canvases=canvases)
+        val_src = data_source.make_ag_source(test_ds, buckets, det, shuffle=False,
+                                             canvases=canvases)
+        steps_per_epoch = len(train_ds)
+
+    model_cfg = cfg.model_config()
+    model = Tempura(model_cfg, device=device, generator=torch.Generator().manual_seed(cfg.seed))
+    # the schedule is epoch-indexed: one update per video on one device
+    steps_per_epoch = max(1, steps_per_epoch)
+    # vidsgg probes the first training video for its state's shapes; the
+    # probe draws the source's first order (a shuffle), so the port makes
+    # it too and every epoch sees vidsgg's order
+    next(iter(train_src()))
+    state = create_train_state(model, base_lr=cfg.lr, warmup_period=cfg.warmup,
+                               steps_per_epoch=steps_per_epoch)
+    if resume:
+        # restores the parameters, the optimizer, the step and the banks
+        state = restore_checkpoint(resume, state, "best_recall")
+        print(f"resumed from {resume} at step {int(state.step)}")
+    train_src = prefetch(train_src, depth=2)
+    writer = MetricsWriter(cfg.save_path)
+    loop_cfg = TrainLoopConfig(
+        mode=cfg.mode,
+        nepoch=cfg.nepoch,
+        log_iter=cfg.log_iter,
+        save_path=cfg.save_path,
+        rel_mem_weight_type=cfg.rel_mem_weight_type,
+        obj_mem_weight_type=cfg.obj_mem_weight_type,
+        obj_mem_compute=cfg.obj_mem_compute,
+        mem_enabled=cfg.rel_mem_compute is not None,
+        data_parallel=cfg.data_parallel,
+    )
+    state = run_training(state, cfg.loss_flags(), loop_cfg, train_src, val_src, cap, writer,
+                         Noise.seeded(cfg.seed + 1, device), model_cfg=model_cfg)
+    writer.close()
+    print(">>> TEMPURA train complete")
+    return state
+
+
+if __name__ == "__main__":
+    main()

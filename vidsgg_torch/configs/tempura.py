@@ -5,8 +5,8 @@ and mode-derived overrides mirror the reference's
 ``tools/utils/tempura_config.py`` exactly (:25-38 for the overrides and
 "None"-string normalization), so reference command lines (docker_cmd.txt)
 port over unchanged. Internally this resolves to the typed model config
-(:class:`vidsgg_torch.models.tempura.TempuraConfig`). The loss flags
-(``loss_flags()``) come with the port's training loop.
+(:class:`vidsgg_torch.models.tempura.TempuraConfig`) plus the loss flags
+(:class:`vidsgg_torch.train.steps.LossFlags`).
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from argparse import ArgumentParser
 import torch
 
 from vidsgg_torch.models.tempura import TempuraConfig
+from vidsgg_torch.train.steps import LossFlags
 
 
 @dataclasses.dataclass
@@ -158,4 +159,15 @@ class TempuraRunConfig:
             mem_fusion=self.mem_fusion,
             selection=self.mem_feat_selection,
             selection_lambda=self.mem_feat_lambda,
+        )
+
+    def loss_flags(self) -> LossFlags:
+        return LossFlags(
+            mode=self.mode,
+            use_ctl_loss=self.use_ctl_loss,
+            obj_con_loss=self.obj_con_loss,
+            lambda_con=self.lambda_con,
+            eos_coef=self.eos_coef,
+            use_cons_str_loss=self.use_cons_str_loss,
+            use_cons_sem_loss=self.use_cons_sem_loss,
         )

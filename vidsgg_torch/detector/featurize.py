@@ -116,12 +116,15 @@ def featurize_gt_entry(entry: Entry, fmaps: torch.Tensor,
 
 class GtFrontend:
     """Frames + GT-box entry skeleton -> featurized Entry and base feature
-    maps: ResNet base, GT ROIAlign 7x7 at 1/16 and the R-CNN head."""
+    maps: ResNet base, GT ROIAlign 7x7 at 1/16 and the R-CNN head. The
+    detector is frozen: no gradient, and ``no_grad`` rather than
+    ``inference_mode``, so that a train step can save the entry for
+    backward."""
 
     def __init__(self, model):
         self.model = model
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def __call__(self, frames, entry):
         """frames [F, H, W, 3] (network scale) -> (Entry, fmaps [F, h, w, 1024])."""
         with record_function("vidsgg.backbone"):

@@ -6,7 +6,9 @@ masking written out: a fully masked row gives all-zero weights, where
 ``F.scaled_dot_product_attention`` gives NaN. Projections and products
 promote their operands as ``vidsgg``'s Flax layers do (``promote.py``:
 float32 queries over a bfloat16 memory bank attend in float32), and the
-scores are divided by sqrt(head_dim) in the queries' type. Parameter names are
+scores are divided by sqrt(head_dim) in the queries' type. Outside the
+deterministic phase, dropout at ``dropout`` acts on the attention weights
+(Flax's arithmetic, ``noise.py``). Parameter names are
 ``nn.MultiheadAttention``'s, so reference checkpoints load as they are;
 :class:`SeparateProjAttention` is the same attention in fairseq's layout
 (TokenGT's).
@@ -19,6 +21,7 @@ import math
 import torch
 from torch import nn
 
+from vidsgg_torch.models.noise import dropout
 from vidsgg_torch.models.promote import dense, linear, matmul
 
 _NEG_INF = -1e9
@@ -44,20 +47,22 @@ def _scaled(scores, head_dim: int, qh):
 
 class MultiheadAttention(nn.Module):
     """q/k/v: [..., T, D]; attn_mask broadcastable to [..., H, Tq, Tk]
-    (a [..., Tq, Tk] mask is shared by every head). Inference only."""
+    (a [..., Tq, Tk] mask is shared by every head); ``dropout``: the rate
+    on the attention weights outside the deterministic phase."""
 
     def __init__(self, embed_dim: int, num_heads: int, bias: bool = True,
-                 out_bias: bool = True):
+                 out_bias: bool = True, dropout: float = 0.0):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError("embed_dim must be divisible by num_heads")
         self.embed_dim = embed_dim
         self.num_heads = num_heads
+        self.dropout = dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim)) if bias else None
         self.out_proj = nn.Linear(embed_dim, embed_dim, bias=out_bias)
 
-    def forward(self, q, k, v, attn_mask=None):
+    def forward(self, q, k, v, attn_mask=None, deterministic: bool = True, noise=None):
         d, h = self.embed_dim, self.num_heads
         hd = d // h
         w = self.in_proj_weight
@@ -74,8 +79,8 @@ class MultiheadAttention(nn.Module):
         scores = _scaled(matmul(qh, kh.transpose(-1, -2)), hd, qh)
         if attn_mask is not None and attn_mask.dim() == scores.dim() - 1:
             attn_mask = attn_mask[..., None, :, :]
-        out = matmul(masked_softmax(scores, attn_mask), vh)
-        out = out.transpose(-3, -2).reshape(q.shape[:-1] + (d,))
+        w = dropout(masked_softmax(scores, attn_mask), self.dropout, noise, deterministic)
+        out = matmul(w, vh).transpose(-3, -2).reshape(q.shape[:-1] + (d,))
         return dense(self.out_proj, out)
 
 

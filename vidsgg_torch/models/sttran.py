@@ -14,6 +14,10 @@ padded pair tokens.
   the pair features over the predicate memory bank, gated by a manual
   lambda or a learned sigmoid.
 
+Outside the deterministic phase, dropout (rate 0.1, ``noise.py``) acts at
+``vidsgg``'s places: on the attention weights, on both residual branches
+and inside the feed-forward of each encoder and decoder layer.
+
 Names follow the reference ``transformer`` (``local_attention.layers.i``,
 ``global_attention.layers.i``, ``position_embedding``, ``mem_attention``,
 ``selector``), so its state_dict keys are the reference's.
@@ -25,7 +29,10 @@ import torch
 from torch import nn
 
 from vidsgg_torch.models.attention import MultiheadAttention
+from vidsgg_torch.models.noise import dropout
 from vidsgg_torch.models.promote import dense, layer_norm
+
+DROPOUT = 0.1  # the reference transformer's rate, in every encoder and decoder layer
 
 
 class EncoderLayer(nn.Module):
@@ -34,32 +41,43 @@ class EncoderLayer(nn.Module):
 
     def __init__(self, embed_dim: int, nhead: int, dim_feedforward: int):
         super().__init__()
-        self.self_attn = MultiheadAttention(embed_dim, nhead)
+        self.self_attn = MultiheadAttention(embed_dim, nhead, dropout=DROPOUT)
         self.linear1 = nn.Linear(embed_dim, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, embed_dim)
         self.norm1 = nn.LayerNorm(embed_dim, eps=1e-5)
         self.norm2 = nn.LayerNorm(embed_dim, eps=1e-5)
 
-    def forward(self, src, attn_mask):
-        src = layer_norm(self.norm1, src + self.self_attn(src, src, src, attn_mask))
-        ffn = dense(self.linear2, torch.relu(dense(self.linear1, src)))
-        return layer_norm(self.norm2, src + ffn)
+    def forward(self, src, attn_mask, deterministic: bool = True, noise=None):
+        def drop(t):
+            return dropout(t, DROPOUT, noise, deterministic)
+
+        src2 = self.self_attn(src, src, src, attn_mask, deterministic, noise)
+        src = layer_norm(self.norm1, src + drop(src2))
+        h = torch.relu(dense(self.linear1, src))
+        src2 = dense(self.linear2, drop(h))
+        return layer_norm(self.norm2, src + drop(src2))
 
 
 class DecoderLayer(nn.Module):
-    """Window decoder layer: q=k=x+pos, v=x; norm after attention only."""
+    """Window decoder layer: q=k=x+pos, v=x; norm after attention only (the
+    second residual has no LayerNorm)."""
 
     def __init__(self, embed_dim: int, nhead: int, dim_feedforward: int):
         super().__init__()
-        self.multihead2 = MultiheadAttention(embed_dim, nhead)
+        self.multihead2 = MultiheadAttention(embed_dim, nhead, dropout=DROPOUT)
         self.linear1 = nn.Linear(embed_dim, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, embed_dim)
         self.norm3 = nn.LayerNorm(embed_dim, eps=1e-5)
 
-    def forward(self, x, pos, attn_mask):
+    def forward(self, x, pos, attn_mask, deterministic: bool = True, noise=None):
+        def drop(t):
+            return dropout(t, DROPOUT, noise, deterministic)
+
         qk = x + pos
-        t = layer_norm(self.norm3, x + self.multihead2(qk, qk, x, attn_mask))
-        return t + dense(self.linear2, torch.relu(dense(self.linear1, t)))
+        t2 = self.multihead2(qk, qk, x, attn_mask, deterministic, noise)
+        t = layer_norm(self.norm3, x + drop(t2))
+        h = torch.relu(dense(self.linear1, t))
+        return t + drop(dense(self.linear2, drop(h)))
 
 
 class MemoryHallucinator(nn.Module):
@@ -98,6 +116,8 @@ class MemoryHallucinator(nn.Module):
         else:
             mem = self.mem_attention(feat, memory, memory)
         out = e * feat + (1.0 - e) * mem
+        # while the banks are empty the attention's parameters get zero
+        # gradients (not None): the optimizer's all-zero skip then holds them
         active = torch.as_tensor(mem_active, device=feat.device)
         return torch.where(active, out, feat)
 
@@ -128,7 +148,7 @@ class STTran(MemoryHallucinator):
             self._init_memory(embed_dim, mem_compute, selection, selection_lambda)
 
     def forward(self, features, im_idx, pair_mask, num_frames, memory=None,
-                mem_active=False):
+                mem_active=False, deterministic: bool = True, noise=None):
         """features [P, D], im_idx [P], pair_mask [P] bool, num_frames [] ->
         (global_output, rel_features, mem_features)."""
         p = features.shape[0]
@@ -138,7 +158,7 @@ class STTran(MemoryHallucinator):
         same_frame = (f[:, None] == f[None, :]) & pm[:, None] & pm[None, :]
         x = features
         for layer in self.local_attention.layers:
-            x = layer(x, same_frame)
+            x = layer(x, same_frame, deterministic, noise)
         local_output = x * pm[:, None]
 
         window = torch.cat([f, f - 1])
@@ -148,7 +168,7 @@ class STTran(MemoryHallucinator):
         win_mask = (window[:, None] == window[None, :]) & valid[:, None] & valid[None, :]
         y = torch.cat([local_output, local_output], dim=0)
         for layer in self.global_attention.layers:
-            y = layer(y, pos, win_mask)
+            y = layer(y, pos, win_mask, deterministic, noise)
 
         former_out, latter_out = y[:p], y[p:]
         out = torch.where((f >= 1)[:, None], latter_out, former_out) * pm[:, None]

@@ -1,11 +1,20 @@
-"""TEMPURA: OSPU + pair features + STTran + GMM predicate heads, test phase.
+"""TEMPURA: OSPU + pair features + STTran + GMM predicate heads.
 
 Counterpart of ``vidsgg/models/tempura.py``. The module exposes the two
 stages between which sgcls and sgdet interpose their relabel (and NMS)
 and pair rebuild: :meth:`Tempura.classify_objects` (OSPU) and
 :meth:`Tempura.relation_forward`; :meth:`Tempura.forward` runs both
-back to back, which is the whole predcls test step (predcls has no object
+back to back, which is the whole predcls step (predcls has no object
 classifier: the GT labels pass through).
+
+The phase is explicit, as in ``vidsgg``, never ``nn.Module.train()``:
+``phase`` ("test" by default, "train"), ``unc`` (the GMM heads'
+uncertainties instead of distributions) and ``deterministic`` (default:
+not the train phase) are arguments of every call, and the train phase
+draws its dropout masks and GMM noise from the ``noise`` argument
+(``noise.py``). Non-deterministic calls use the batch statistics of the
+masked batch norms and update their running statistics. The train phase of
+the OSPU (sgcls, sgdet) is not ported yet.
 
 Pair features: subj_fc(2048->512) ⊕ obj_fc(2048->512) ⊕ vr (1x1 conv over
 the union ROI features + a conv stack over the 2x27x27 spatial masks,
@@ -44,6 +53,9 @@ from vidsgg_torch.models.norm import MaskedBatchNorm
 from vidsgg_torch.models.ospu import ObjectClassifier
 from vidsgg_torch.models.promote import conv2d, dense
 from vidsgg_torch.models.sttran import STTran
+
+# what the train phase does not cover yet, by ROADMAP.md queue 1 item
+OSPU_TRAINING = "ROADMAP.md queue 1 item 5a-ii (sgcls training: the OSPU train phase)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,11 +99,11 @@ class PairFeatures(nn.Module):
         self.conv = nn.Sequential(
             nn.Conv2d(2, 128, 7, stride=2, padding=3),
             nn.ReLU(),
-            MaskedBatchNorm(128, channel_dim=1),
+            MaskedBatchNorm(128, channel_dim=1, momentum=0.01),
             nn.MaxPool2d(3, stride=2, padding=1),
             nn.Conv2d(128, 256, 3, padding=1),
             nn.ReLU(),
-            MaskedBatchNorm(256, channel_dim=1),
+            MaskedBatchNorm(256, channel_dim=1, momentum=0.01),
         )
         self.subj_fc = nn.Linear(2048, 512)
         self.obj_fc = nn.Linear(2048, 512)
@@ -99,8 +111,10 @@ class PairFeatures(nn.Module):
         self.obj_embed = nn.Embedding(cfg.num_classes, 200)
         self.obj_embed2 = nn.Embedding(cfg.num_classes, 200)
 
-    def pair_features(self, entry: Entry, obj_mem_features, pred_labels):
-        """-> (rel [P, 1936], obj_class [P])."""
+    def pair_features(self, entry: Entry, obj_mem_features, pred_labels,
+                      deterministic: bool = True):
+        """-> (rel [P, 1936], obj_class [P]). Not deterministic: the mask
+        convs' batch norms take the valid pairs' batch statistics."""
         pair = entry.pair_idx.long()
         pm = entry.pair_mask
         src = obj_mem_features if self.cfg.take_obj_mem_feat else entry.features
@@ -110,7 +124,13 @@ class PairFeatures(nn.Module):
         u = conv2d(self.union_func1, entry.union_feat.permute(0, 3, 1, 2))
         h = entry.spatial_masks
         for layer in self.conv:
-            h = conv2d(layer, h) if isinstance(layer, nn.Conv2d) else layer(h)
+            if isinstance(layer, nn.Conv2d):
+                h = conv2d(layer, h)
+            elif isinstance(layer, MaskedBatchNorm):
+                mask = pm[:, None, None].expand(h.shape[0], h.shape[2], h.shape[3])
+                h = layer(h, mask, use_running_average=deterministic)
+            else:
+                h = layer(h)
         vr = dense(self.vr_fc, (u + h).reshape(u.shape[0], -1))     # CHW flatten
         x_visual = torch.cat([subj, obj, vr], dim=1)
 
@@ -166,15 +186,20 @@ class Tempura(PairFeatures):
         return self.object_classifier(entry, obj_memory, mem_active)
 
     def relation_forward(self, entry: Entry, obj_mem_features=None, rel_memory=None,
-                         mem_active=False) -> dict:
-        """Pair features -> STTran -> predicate heads, test phase."""
+                         mem_active=False, *, phase: str = "test", unc: bool = False,
+                         deterministic: bool | None = None, noise=None) -> dict:
+        """Pair features -> STTran -> predicate heads."""
         cfg = self.cfg
+        if deterministic is None:
+            deterministic = phase != "train"
         if obj_mem_features is None:
             obj_mem_features = entry.features
-        rel_in, obj_class = self.pair_features(entry, obj_mem_features, entry.pred_labels)
+        rel_in, obj_class = self.pair_features(entry, obj_mem_features, entry.pred_labels,
+                                               deterministic)
         global_output, rel_feats, mem_feats = self.glocal_transformer(
             rel_in, entry.im_idx, entry.pair_mask, entry.num_frames,
-            memory=rel_memory, mem_active=mem_active,
+            memory=rel_memory, mem_active=mem_active, deterministic=deterministic,
+            noise=noise,
         )
         out = {
             "obj_class": obj_class,
@@ -182,13 +207,21 @@ class Tempura(PairFeatures):
             "rel_mem_features": mem_feats,
         }
         pm = entry.pair_mask[:, None]
+        heads = (("attention", self.a_rel_compress), ("spatial", self.s_rel_compress),
+                 ("contacting", self.c_rel_compress))
         if cfg.rel_head == "gmm":
-            out["attention_distribution"] = self.a_rel_compress(global_output) * pm
-            out["spatial_distribution"] = self.s_rel_compress(global_output) * pm
-            out["contacting_distribution"] = self.c_rel_compress(global_output) * pm
+            for name, head in heads:
+                if unc:
+                    out[f"{name}_al_uc"], out[f"{name}_ep_uc"] = head(
+                        global_output, phase, unc=True)
+                else:
+                    out[f"{name}_distribution"] = head(global_output, phase,
+                                                       noise=noise) * pm
         else:
-            out["attention_distribution"] = torch.softmax(
-                dense(self.a_rel_compress, global_output), dim=-1) * pm
+            a = dense(self.a_rel_compress, global_output)
+            if phase == "test":
+                a = torch.softmax(a, dim=-1)
+            out["attention_distribution"] = a * pm
             out["spatial_distribution"] = torch.sigmoid(
                 dense(self.s_rel_compress, global_output)) * pm
             out["contacting_distribution"] = torch.sigmoid(
@@ -196,12 +229,18 @@ class Tempura(PairFeatures):
         return out
 
     def forward(self, entry: Entry, rel_memory=None, obj_memory=None,
-                mem_active=False) -> dict:
-        """The full test-phase forward: OSPU (none in predcls), then the
-        relation stage on the entry as it is. The predcls test step; sgcls
-        and sgdet tests relabel between the two stages instead."""
-        aux = ({} if self.cfg.mode == "predcls"
-               else self.classify_objects(entry, obj_memory, mem_active))
-        out = self.relation_forward(entry, aux.get("object_mem_features"),
-                                    rel_memory, mem_active)
+                mem_active=False, *, phase: str = "test", unc: bool = False,
+                deterministic: bool | None = None, noise=None) -> dict:
+        """The full forward: OSPU (none in predcls), then the relation stage
+        on the entry as it is. The predcls train and test step; sgcls and
+        sgdet tests relabel between the two stages instead."""
+        if self.cfg.mode == "predcls":
+            aux = {}
+        elif phase == "train" or deterministic is False:
+            raise NotImplementedError(f"the OSPU's train phase is not ported yet: {OSPU_TRAINING}")
+        else:
+            aux = self.classify_objects(entry, obj_memory, mem_active)
+        out = self.relation_forward(entry, aux.get("object_mem_features"), rel_memory,
+                                    mem_active, phase=phase, unc=unc,
+                                    deterministic=deterministic, noise=noise)
         return {**aux, **out}

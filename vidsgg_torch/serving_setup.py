@@ -1,4 +1,4 @@
-"""The serving configurations the port is measured at on the card.
+"""The serving and training configurations the port is measured at on the card.
 
 ``chip_smoke.py`` and ``scripts/profile_torch_sgdet.py`` build them from
 here: the default ``tempura_test`` models at full width with seeded random
@@ -24,6 +24,9 @@ weights (no checkpoint ships), 16-frame 608x1008 videos made from a seed.
   (``FasterRCNN(dtype=bfloat16)``, ``bench.py:105-108``) on the same float32
   weights, and ``build_pipeline(..., compute_dtype=torch.bfloat16)`` the
   relation stack of ``tempura_test --bf16`` (``vidsgg/cli/tempura_test.py:132``).
+* training: :func:`train_steps_card_vs_cpu`, two float64 predcls train
+  steps (the second with filled banks) of a one-layer TEMPURA on a device
+  and on the CPU with the same recorded noise.
 """
 
 from __future__ import annotations
@@ -34,11 +37,22 @@ import dataclasses
 import numpy as np
 import torch
 
+from vidsgg_torch.cli.data_source import make_synthetic_source
 from vidsgg_torch.cli.teatgt_test import SYNTHETIC_CLIPS, ag_clip_caps
 from vidsgg_torch.data import EntryCapacity, build_gt_entry, synthetic_video_annotation
+from vidsgg_torch.debias import MemoryAccumulator, accumulate_memory, finalize_memory
 from vidsgg_torch.detector import FasterRCNN, GtFrontend, SgdetCaps, SgdetFrontend
 from vidsgg_torch.models import TeatGT, TeatGTConfig, Tempura, TempuraConfig
-from vidsgg_torch.train import EvalPipeline, create_serving_state
+from vidsgg_torch.models.noise import Noise, RecordingNoise
+from vidsgg_torch.train import (
+    EvalPipeline,
+    LossFlags,
+    create_serving_state,
+    create_train_state,
+    eval_step,
+    make_train_step,
+)
+from vidsgg_torch.train.eval_pipeline import cast_floating
 
 FRAMES, H, W = 16, 608, 1008
 DETS = 16
@@ -165,3 +179,43 @@ def gt_video(seed: int, mode: str, device, cap: EntryCapacity = GT_CAP,
         dist *= entry.obj_mask.cpu().numpy()[:, None]
         entry = dataclasses.replace(entry, distribution=torch.from_numpy(dist).to(entry.device))
     return ann, entry
+
+
+def _train_two_steps(model, entry, noises) -> dict:
+    """Step, ``unc`` fold, bank finalize, step: the metrics of both steps,
+    the banks, and every parameter and buffer afterwards."""
+    state = create_train_state(model, steps_per_epoch=1)
+    step = make_train_step(LossFlags(mode="predcls", use_ctl_loss=True))
+    out = {"step 0": step(state, entry, noises[0])}
+    acc = MemoryAccumulator.zeros(dtype=torch.float64, device=entry.device)
+    acc = accumulate_memory(acc, entry, eval_step(state, entry, unc=True))
+    state = state.with_memory(*finalize_memory(acc))
+    out["step 1"] = step(state, entry, noises[1])
+    out["banks"] = {"rel_memory": state.rel_memory, "obj_memory": state.obj_memory}
+    out["state"] = model.state_dict()
+    return out
+
+
+def train_steps_card_vs_cpu(device, seed: int = 0) -> float:
+    """Two float64 predcls train steps of a one-layer TEMPURA (d = 1936) on
+    a synthetic video, on ``device`` and on the CPU, the CPU's dropout masks
+    and GMM noise replayed on ``device``. Returns the largest difference of
+    any loss, gradient norm, bank, parameter or batch-norm statistic,
+    relative to max(1, max|CPU's|) of its tensor."""
+    cap = EntryCapacity(6, 18, 12)   # the synthetic video: 6 frames of 3 boxes
+    cfg = TempuraConfig(mode="predcls", enc_layers=1, dec_layers=1)
+    model = Tempura(cfg, device="cpu", generator=torch.Generator().manual_seed(seed)).double()
+    card_model = copy.deepcopy(model).to(device)
+    entry = next(iter(make_synthetic_source(1, cap, seed=seed, shuffle=False, stable=True,
+                                            device="cpu")()))[0]
+    entry = cast_floating(entry, torch.float64)
+    noises = [RecordingNoise(Noise.seeded(seed + i, "cpu")) for i in range(2)]
+    want = _train_two_steps(model, entry, noises)
+    got = _train_two_steps(card_model, entry.to(device), [n.replay() for n in noises])
+    err = 0.0
+    for part in want:
+        for k, w in want[part].items():
+            g = got[part][k].detach().cpu().double()
+            w = w.detach().double()
+            err = max(err, float((g - w).abs().max()) / max(1.0, float(w.abs().max())))
+    return err

@@ -46,7 +46,7 @@ from vidsgg_torch.models.postprocess_device import (
     sgcls_postprocess_device,
     sgdet_postprocess_device,
 )
-from vidsgg_torch.train.state import ServingState, cast_state_for_serving
+from vidsgg_torch.train.state import ServingState, TrainState, cast_state_for_serving
 
 
 MODES = ("predcls", "sgcls", "sgdet")
@@ -208,7 +208,7 @@ class EvalPipeline:
         """One video -> evaluator-ready pred dict (NumPy).
 
         Args:
-          state: the serving state.
+          state: the serving state (or a train state: its serving view).
           entry: featurized entry (GT boxes for predcls/sgcls; detector
             output for sgdet).
           fmaps: [F, H, W, 1024] base feature maps for union re-pooling
@@ -217,6 +217,8 @@ class EvalPipeline:
             in the original GT pair order (sgcls, sgdet).
         """
         entry = entry.to(self.device)
+        if isinstance(state, TrainState):
+            state = state.serving()
         state = self._serving_state(state)
         if self.compute_dtype is not None:
             entry = cast_floating(entry, self.compute_dtype)

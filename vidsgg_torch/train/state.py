@@ -1,10 +1,12 @@
-"""Serving state: the relation model plus its memory banks.
+"""Serving and train states: the relation model plus its memory banks.
 
-Counterpart of the serving fields of ``vidsgg/train/state.py``: the
-relation model (TEMPURA, or TEAT-GT, which reads no memory), the relation
-memory (``rel_memory`` [26, 1936], [attention; spatial;
-contacting] rows), the object memory (``obj_memory`` [C-1, D]) and
-``mem_active``, which gates the hallucinators until the banks are filled.
+Counterpart of ``vidsgg/train/state.py``: the relation model (TEMPURA, or
+TEAT-GT, which reads no memory), the relation memory (``rel_memory`` [26,
+1936], [attention; spatial; contacting] rows), the object memory
+(``obj_memory`` [C-1, D]) and ``mem_active``, which gates the
+hallucinators until the first epoch-end bank computation fills them.
+:class:`TrainState` adds the optimizer and the step count; the model's
+parameters and batch-norm statistics live in the model itself.
 """
 
 from __future__ import annotations
@@ -47,16 +49,54 @@ def cast_state_for_serving(state: ServingState, dtype: torch.dtype) -> ServingSt
     )
 
 
+def _empty_banks(model: nn.Module):
+    """(rel_memory, obj_memory, mem_active): zero banks and False, on the
+    model's device and in its dtype."""
+    w = model.subj_fc.weight
+    cfg = model.cfg
+    return (torch.zeros((C.NUM_PREDICATES, REL_FEATURE_DIM), dtype=w.dtype, device=w.device),
+            torch.zeros((cfg.num_classes - 1, obj_memory_dim(cfg)), dtype=w.dtype,
+                        device=w.device),
+            torch.zeros((), dtype=torch.bool, device=w.device))
+
+
 def create_serving_state(model: nn.Module) -> ServingState:
     """Empty banks (zeros) and ``mem_active`` False, on the model's device
     and in its dtype."""
-    w = model.subj_fc.weight
-    cfg = model.cfg
-    return ServingState(
-        model=model,
-        rel_memory=torch.zeros((C.NUM_PREDICATES, REL_FEATURE_DIM), dtype=w.dtype,
-                               device=w.device),
-        obj_memory=torch.zeros((cfg.num_classes - 1, obj_memory_dim(cfg)),
-                               dtype=w.dtype, device=w.device),
-        mem_active=torch.zeros((), dtype=torch.bool, device=w.device),
-    )
+    return ServingState(model, *_empty_banks(model))
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: nn.Module
+    optimizer: torch.optim.Optimizer   # ReferenceAdamW over the model's parameters
+    step: int
+    rel_memory: torch.Tensor
+    obj_memory: torch.Tensor
+    mem_active: torch.Tensor   # [] bool
+
+    def with_memory(self, rel_memory, obj_memory) -> "TrainState":
+        return dataclasses.replace(
+            self, rel_memory=rel_memory, obj_memory=obj_memory,
+            mem_active=torch.ones((), dtype=torch.bool, device=rel_memory.device))
+
+    def serving(self) -> ServingState:
+        """The serving view: the same model and banks."""
+        return ServingState(self.model, self.rel_memory, self.obj_memory, self.mem_active)
+
+
+# the reference's packed attention projections: q, k and v, which are
+# three tensors in vidsgg and so to its optimizer
+PACKED_QKV = ("in_proj_weight", "in_proj_bias")
+
+
+def create_train_state(model: nn.Module, **optim_kw) -> TrainState:
+    """Empty banks, step 0, and :class:`ReferenceAdamW` over every parameter
+    of ``model`` (``optim_kw``: its schedule, e.g. ``steps_per_epoch``),
+    each packed q/k/v projection as three tensors."""
+    from vidsgg_torch.train.optim import ReferenceAdamW
+
+    names, params = zip(*model.named_parameters())
+    segments = [3 if n.rsplit(".", 1)[-1] in PACKED_QKV else 1 for n in names]
+    return TrainState(model, ReferenceAdamW(params, segments=segments, **optim_kw), 0,
+                      *_empty_banks(model))

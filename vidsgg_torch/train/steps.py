@@ -1,0 +1,99 @@
+"""Train and eval steps with the reference's loss assembly (counterpart of
+``vidsgg/train/steps.py``).
+
+Loss set (TEMPURA_train.py:190-218): attention CE + spatial/contacting
+BCE, plus the relation contrastive ('ctl') losses at 0.2x spatial and
+contact under ``--use_ctl_loss``. The object losses of sgcls/sgdet and the
+TEAT-GT terms are not ported yet and raise, naming their ROADMAP items.
+
+:func:`make_train_step` gives one step of ``vidsgg``'s: the train-phase
+forward (dropout and GMM noise from the run's noise source, batch
+statistics, running statistics updated), the loss sum, backward, the clip
+and the reference AdamW (:class:`~vidsgg_torch.train.optim.ReferenceAdamW`),
+returning ``vidsgg``'s metrics dict as 0-d device tensors: no host
+transfer. It refuses to run under ``torch.inference_mode``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from vidsgg_torch.data.entry import Entry
+from vidsgg_torch.losses import contrastive_loss, masked_bce, masked_ce
+from vidsgg_torch.models.tempura import OSPU_TRAINING
+
+TEATGT_TRAINING = "ROADMAP.md queue 1 item 6b (TEAT-GT training)"
+
+
+@dataclasses.dataclass(frozen=True)
+class LossFlags:
+    mode: str = "predcls"
+    use_ctl_loss: bool = False
+    obj_con_loss: str | None = None
+    lambda_con: float = 1.0
+    eos_coef: float = 1.0
+    num_classes: int = 37
+    use_cons_str_loss: bool = False
+    use_cons_sem_loss: bool = False
+    cons_weight: float = 2500.0
+    # TEMPURA: 0.2x spatial + contact; TEAT-GT: 0.25x with attention
+    ctl_variant: str = "tempura"
+
+
+def assemble_losses(out: dict, entry: Entry, flags: LossFlags) -> dict:
+    if flags.mode in ("sgcls", "sgdet"):
+        raise NotImplementedError(f"the object losses are not ported yet: {OSPU_TRAINING}")
+    if flags.use_cons_str_loss or flags.use_cons_sem_loss or flags.ctl_variant != "tempura":
+        raise NotImplementedError(f"the TEAT-GT loss terms are not ported yet: {TEATGT_TRAINING}")
+    pm = entry.pair_mask
+    losses = {
+        "attention_relation_loss": masked_ce(out["attention_distribution"],
+                                             entry.attention_gt, pm),
+        "spatial_relation_loss": masked_bce(out["spatial_distribution"], entry.spatial_gt, pm),
+        "contacting_relation_loss": masked_bce(out["contacting_distribution"],
+                                               entry.contacting_gt, pm),
+    }
+    if flags.use_ctl_loss:
+        losses["spatial_con_loss"] = 0.2 * contrastive_loss(
+            out["spatial_distribution"], torch.argmax(entry.spatial_gt, 1), pm)
+        losses["contact_con_loss"] = 0.2 * contrastive_loss(
+            out["contacting_distribution"], torch.argmax(entry.contacting_gt, 1), pm)
+    return losses
+
+
+def make_train_step(flags: LossFlags):
+    """-> ``train_step(state, entry, noise) -> metrics``, which updates
+    ``state`` in place (parameters, batch-norm statistics, optimizer,
+    ``step``)."""
+
+    def train_step(state, entry: Entry, noise) -> dict:
+        if torch.is_inference_mode_enabled():
+            raise RuntimeError("the train step cannot run under torch.inference_mode")
+        opt = state.optimizer
+        opt.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            out = state.model(entry, rel_memory=state.rel_memory, obj_memory=state.obj_memory,
+                              mem_active=state.mem_active, phase="train", unc=False,
+                              noise=noise)
+            losses = assemble_losses(out, entry, flags)
+            total = sum(losses.values())
+            total.backward()
+        grad_norm = opt.global_grad_norm()
+        opt.step(grad_norm=grad_norm)
+        state.step += 1
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["total_loss"] = total.detach()
+        metrics["grad_norm"] = grad_norm
+        return metrics
+
+    return train_step
+
+
+@torch.no_grad()
+def eval_step(state, entry: Entry, unc: bool = False) -> dict:
+    """The test-phase forward (deterministic, running batch-norm
+    statistics); ``unc`` gives the GMM heads' uncertainties."""
+    return state.model(entry, rel_memory=state.rel_memory, obj_memory=state.obj_memory,
+                       mem_active=state.mem_active, phase="test", unc=unc)
