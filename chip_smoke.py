@@ -5,9 +5,9 @@
 
 Drives the port's serving paths, TEMPURA sgdet (the main path, through
 the NMS kernel), predcls and sgcls, and TEAT-GT in all three modes, and
-TEMPURA predcls training, at full width on the CUDA card, scores what
-they serve with the port's evaluator, and fails (nonzero exit, no result
-line) on any fault:
+TEMPURA training in all three modes, at full width on the CUDA card,
+scores what they serve with the port's evaluator, and fails (nonzero exit,
+no result line) on any fault:
 
 1. device: name, count, ``nvidia-smi`` name and power limit; TF32 off;
 2. build: compiles the NMS kernel (``vidsgg_torch/ops/csrc/nms.cu``) with
@@ -88,21 +88,28 @@ line) on any fault:
     float32 run of the same video, R/mR in [0, 1]; the kernel phase also
     times the bfloat16 grouped call, and the CLI phase runs
     ``tempura_test --bf16`` in sgdet over its split;
-11. TEMPURA predcls training at the published widths (1 + 3 layers,
-    K = 6, joint memory; float32): 2 epochs over the four GT-box videos of
-    5. through ``run_training`` (``train_phase``: the train step, AdamW,
-    the ``unc`` forward and memory fold, the finalize and validation each
-    timed between synchronizes; finite losses, moved parameters, the
-    memory hallucinator untouched through epoch 0 and trained in epoch 1,
-    no NMS launch; two float64 train steps on the card equal to the CPU's
-    within 1e-8 with the same noise), then ``tempura_train`` as a user
-    runs it over an AG-format tree with a train split, ``--resume`` and
-    ``tempura_test --ckpt`` (``train_cli_phase``: the checkpoint files
-    against the states bit for bit, the directory deleted after);
+11. TEMPURA training at the published widths (1 + 3 layers, joint memory;
+    float32): predcls (K = 6) and sgcls (K = 4, 3 tracking layers, the
+    ``euc_con`` object loss and the object memory), 2 epochs each over the
+    four GT-box videos of 5. through ``run_training`` (``train_phase``: the
+    train step, AdamW, the ``unc`` forward and memory fold, the finalize
+    and validation each timed between synchronizes; finite losses, moved
+    parameters, the memory hallucinators untouched through epoch 0 and
+    trained in epoch 1, no NMS launch; two float64 train steps on the card
+    equal to the CPU's within 1e-8 with the same noise); sgdet on the
+    calibrated detector (``sgdet_train_phase``: four videos of the serving
+    frames with synthetic annotations, the train frontend's detect, GT
+    assignment, SUPPLY and pack, 2 epochs validated through the test
+    frontend; no video skipped, 2 kernel launches per train video and 3 per
+    validation video, every call bit-equal to the plain version); then
+    ``tempura_train`` as a user runs it in all three modes over AG-format
+    trees with train splits, ``--resume`` and ``tempura_test --ckpt``
+    (``train_cli_phase``: the checkpoint files against the states bit for
+    bit, each mode's directory deleted after);
 12. a ``kernels`` JSON line (K1 and K2, launches per main path: TEMPURA's
-    and TEAT-GT's sgdet videos, in float32 and in bfloat16, and TEMPURA
-    predcls training's 0; K1's calls with the bfloat16 grouped call),
-    then the result line.
+    and TEAT-GT's sgdet videos, in float32 and in bfloat16, TEMPURA
+    predcls and sgcls training's 0, sgdet training's; K1's calls with the
+    bfloat16 grouped call), then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -1634,17 +1641,33 @@ def cli_phase(det):
 
 
 # ---------------------------------------------------------------------------
-# training: TEMPURA predcls through run_training, then the train CLI
+# training: TEMPURA predcls and sgcls through run_training, sgdet through
+# its train frontend and run_training, then the train CLI in all three modes
 # ---------------------------------------------------------------------------
 
 TRAIN_EPOCHS = 2
-# the memory hallucinator's parameters: untouched while the banks are empty
-HALLUCINATOR = ("glocal_transformer.mem_attention.in_proj_weight",
-                "glocal_transformer.mem_attention.out_proj.weight")
+# the memory hallucinators' parameters: untouched while the banks are empty
+HALLUCINATORS = {
+    "predcls": ("glocal_transformer.mem_attention.in_proj_weight",
+                "glocal_transformer.mem_attention.out_proj.weight"),
+}
+HALLUCINATORS["sgcls"] = HALLUCINATORS["predcls"] + (
+    "object_classifier.mem_attention.in_proj_weight",
+    "object_classifier.mem_attention.out_proj.weight")
 TRAIN_CARD_CPU_TOL = 1e-8
-# the train CLI's tree: two 16-frame train videos and two test videos
-TRAIN_CLI_VIDEOS = [(500, FRAMES, "train"), (501, FRAMES, "train"),
-                    (510, FRAMES, "test"), (511, FRAMES, "test")]
+# the train CLI's trees: two train videos and two test videos a mode, 16
+# frames for the GT-box modes; sgdet's of 12 frames, whose 16 detections a
+# frame and SUPPLY rows fit vidsgg's largest bucket, EntryCapacity(64, 256,
+# 192)
+TRAIN_CLI_VIDEOS = {
+    "predcls": [(500, FRAMES, "train"), (501, FRAMES, "train"),
+                (510, FRAMES, "test"), (511, FRAMES, "test")],
+    "sgdet": [(520, 12, "train"), (521, 12, "train"), (530, 12, "test"), (531, 12, "test")],
+}
+TRAIN_CLI_VIDEOS["sgcls"] = TRAIN_CLI_VIDEOS["predcls"]
+# sgdet training: four videos of the serving frames, 2 epochs, validated on
+# the same videos
+SGDET_TRAIN_SEEDS = [600 + i for i in range(N_VIDEOS + 1)]
 
 
 @contextlib.contextmanager
@@ -1660,14 +1683,19 @@ def patched(module, **attrs):
             setattr(module, k, v)
 
 
-def synced(fn, sink: list):
-    """``fn`` timed on the host clock between two synchronizes, in ms."""
+def synced(fn, sink: list, peaks: list | None = None):
+    """``fn`` timed on the host clock between two synchronizes, in ms; with
+    ``peaks``, also the peak bytes allocated during the call."""
     def wrapped(*args, **kw):
         torch.cuda.synchronize()
+        if peaks is not None:
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = fn(*args, **kw)
         torch.cuda.synchronize()
         sink.append(1e3 * (time.perf_counter() - t0))
+        if peaks is not None:
+            peaks.append(torch.cuda.max_memory_allocated())
         return out
     return wrapped
 
@@ -1689,73 +1717,144 @@ def adamw_bound(model) -> dict:
                 ops_ms=1e3 * 15 * n / H100_FP32_FLOPS, bound_by="bytes")
 
 
-def train_phase(det):
-    """TEMPURA predcls training at the published widths (1 encoder + 3
-    decoder layers, K = 6, joint memory; float32, TF32 off) through
-    ``run_training``: 2 epochs over the four GT-box videos of
-    ``serve_gt_phase`` (featurized by the calibrated ResNet-101 first, as a
-    loader would), validated on the same videos. Times each stage between
-    synchronizes: the train step (forward, backward, clip, AdamW) and
-    AdamW alone, the ``unc`` forward and the memory fold, the epoch-end
-    finalize, validation per video; the run's peak memory. Checks: finite
-    losses, moved parameters, the hallucinator untouched through epoch 0
-    and trained in epoch 1, no NMS launch; then two float64 train steps on
-    the card against the CPU with the same noise."""
+def train_model(mode: str, device):
+    """TEMPURA as ``tempura_train --mode <mode>`` builds it (the run
+    config's mode overrides: sgcls and sgdet K = 4 with 3 tracking layers,
+    the ``euc_con`` object loss), from seed 1; sgcls adds
+    ``-obj_mem_compute`` (the 2376-wide object bank and its hallucinator).
+    Returns (model, loss flags, the run config)."""
+    from vidsgg_torch.configs.tempura import TempuraRunConfig
+    from vidsgg_torch.models import Tempura
+
+    run_cfg = TempuraRunConfig(mode=mode, obj_mem_compute=mode == "sgcls")
+    model = Tempura(run_cfg.model_config(), device=device,
+                    generator=torch.Generator().manual_seed(1))
+    return model, run_cfg.loss_flags(), run_cfg
+
+
+class TrainTimes:
+    """Stage times (ms between synchronizes) and per-call peaks of a
+    ``run_training`` run, through the loop's module attributes: the train
+    step (and the optimizer's update inside it), the ``unc`` forward, the
+    memory fold, the finalize and validation per video. It also keeps every
+    step's metrics and checks the hallucinators at the end of epoch 0."""
+
+    STAGES = ("train_step", "adamw", "unc_forward", "memory_fold", "finalize", "validation")
+
+    def __init__(self, state, hallucinators):
+        from vidsgg_torch.train import loop as tloop
+
+        self.tloop = tloop
+        self.times = {k: [] for k in self.STAGES}
+        self.peaks = {k: [] for k in self.STAGES}
+        self.metrics, self.saved, self.epoch0 = [], [], {}
+        self.state, self.hallucinators = state, hallucinators
+        self.params = dict(state.model.named_parameters())
+        self.initial = {k: v.detach().clone() for k, v in self.params.items()}
+
+    def stage(self, name, fn):
+        return synced(fn, self.times[name], self.peaks[name])
+
+    @contextlib.contextmanager
+    def active(self):
+        tloop, times = self.tloop, self
+        base_step, base_finalize = tloop.make_train_step, tloop.finalize_memory
+
+        def make_train_step(flags):
+            step = times.stage("train_step", base_step(flags))
+
+            def train_step(st, entry, noise):
+                times.metrics.append(step(st, entry, noise))
+                return times.metrics[-1]
+            return train_step
+
+        def finalize(*args):
+            if not times.epoch0:   # the end of epoch 0: the hallucinators have not moved
+                opt = times.state.optimizer
+                times.epoch0["counts"] = {n: opt.state[times.params[n]]["step"].tolist()
+                                          for n in times.hallucinators}
+                times.epoch0["equal"] = all(torch.equal(times.params[n], times.initial[n])
+                                            for n in times.hallucinators)
+            return times.stage("finalize", base_finalize)(*args)
+
+        class TimedPipeline(tloop.EvalPipeline):
+            def __call__(self, *args, **kw):
+                return times.stage("validation", super().__call__)(*args, **kw)
+
+        opt = self.state.optimizer
+        opt.step = synced(opt.step, self.times["adamw"])
+        try:
+            with patched(tloop, make_train_step=make_train_step,
+                         eval_step=self.stage("unc_forward", tloop.eval_step),
+                         accumulate_memory=self.stage("memory_fold", tloop.accumulate_memory),
+                         finalize_memory=finalize, EvalPipeline=TimedPipeline,
+                         save_checkpoint=lambda path, st, name: self.saved.append(name)):
+                yield self
+        finally:
+            del opt.step
+
+    def check(self, state, what: str, videos: int) -> dict:
+        """Finite losses, moved parameters, the hallucinators untouched
+        through epoch 0 and trained in epoch 1, vidsgg's checkpoint names."""
+        host = torch.stack([torch.stack(list(m.values())) for m in self.metrics]).cpu()
+        if not bool(torch.isfinite(host).all()):
+            raise AssertionError(f"{what}: non-finite losses {host.tolist()}")
+        params = self.params
+        moved = [k for k, p in params.items() if not torch.equal(p, self.initial[k])]
+        if len(moved) < 0.9 * len(params):
+            raise AssertionError(f"{what}: only {len(moved)} of {len(params)} parameters moved")
+        e0 = self.epoch0
+        if not e0.get("equal") or any(set(c) != {0} for c in e0["counts"].values()):
+            raise AssertionError(f"{what}: a hallucinator moved in epoch 0: {e0}")
+        hall = {n: state.optimizer.state[params[n]]["step"].tolist() for n in self.hallucinators}
+        if any(torch.equal(params[n], self.initial[n]) for n in self.hallucinators) or any(
+                set(c) != {videos} for c in hall.values()):
+            raise AssertionError(f"{what}: a hallucinator did not train in epoch 1: {hall}")
+        if self.saved[0] != "checkpoint_0" or self.saved[-1] != "checkpoint_final":
+            raise AssertionError(f"{what}: checkpoints {self.saved}")
+        return dict(moved_parameters=len(moved), parameters=len(params),
+                    losses={k: host[:, i].tolist() for i, k in enumerate(self.metrics[0])},
+                    hallucinator_counts={"epoch 0": e0["counts"], "end": hall},
+                    checkpoints=self.saved)
+
+
+def train_phase(det, mode: str = "predcls"):
+    """TEMPURA predcls or sgcls training at the published widths (1 encoder
+    + 3 decoder layers; predcls K = 6; sgcls K = 4, 3 tracking layers of
+    2376, linear object head, ``euc_con``, and the object memory; joint
+    relation memory; float32, TF32 off) through ``run_training``: 2 epochs
+    over the four GT-box videos of ``serve_gt_phase`` (featurized by the
+    calibrated ResNet-101 first, as a loader would), validated on the same
+    videos. Times each stage between synchronizes; the run's peak memory.
+    Checks: finite losses, moved parameters, the hallucinators untouched
+    through epoch 0 and trained in epoch 1, no NMS launch; then two float64
+    train steps on the card against the CPU with the same noise."""
     from vidsgg_torch.models.noise import Noise
     from vidsgg_torch.ops.nms import NMS_KERNEL
     from vidsgg_torch.serving_setup import GT_CAP, train_steps_card_vs_cpu
-    from vidsgg_torch.train import LossFlags, create_train_state
+    from vidsgg_torch.train import create_train_state
     from vidsgg_torch.train import loop as tloop
     from vidsgg_torch.train.metrics import MetricsWriter
 
+    tag = "[train]" if mode == "predcls" else f"[train {mode}]"
     t0 = time.perf_counter()
-    model = build_relation("predcls", det.device)
+    model, flags, run_cfg = train_model(mode, det.device)
     state = create_train_state(model, steps_per_epoch=len(GT_SEEDS))
     front = GtFrontend(det)
     videos = []
     for seed in GT_SEEDS:
-        ann, skeleton = gt_video(seed, "predcls", det.device)
+        ann, skeleton = gt_video(seed, mode, det.device)
         entry, fmaps = front(make_frames(seed, FRAMES, H, W, det.device), skeleton)
         videos.append((entry, fmaps, ann))
-    params = dict(model.named_parameters())
-    initial = {k: v.detach().clone() for k, v in params.items()}
     torch.cuda.synchronize()
-    log(f"[train] TEMPURA {model.cfg}, {sum(p.numel() for p in model.parameters())} "
+    log(f"{tag} TEMPURA {model.cfg}, {sum(p.numel() for p in model.parameters())} "
         f"parameters, and {len(videos)} featurized videos ready in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    times = {k: [] for k in ("train_step", "adamw", "unc_forward", "memory_fold", "finalize",
-                             "validation")}
-    metrics, saved, epoch0 = [], [], {}
-    base_step, base_finalize = tloop.make_train_step, tloop.finalize_memory
-
-    def make_train_step(flags):
-        step = synced(base_step(flags), times["train_step"])
-
-        def train_step(st, entry, noise):
-            metrics.append(step(st, entry, noise))
-            return metrics[-1]
-        return train_step
-
-    def finalize(*args):
-        if not epoch0:   # the end of epoch 0: the hallucinator has not moved
-            epoch0["counts"] = {n: state.optimizer.state[params[n]]["step"].tolist()
-                                for n in HALLUCINATOR}
-            epoch0["equal"] = all(torch.equal(params[n], initial[n]) for n in HALLUCINATOR)
-        return synced(base_finalize, times["finalize"])(*args)
-
-    class TimedPipeline(tloop.EvalPipeline):
-        def __call__(self, *args, **kw):
-            return synced(super().__call__, times["validation"])(*args, **kw)
-
-    state.optimizer.step = synced(state.optimizer.step, times["adamw"])
-    cfg = tloop.TrainLoopConfig(mode="predcls", nepoch=TRAIN_EPOCHS, log_iter=len(videos))
-    with tempfile.TemporaryDirectory(prefix="train_log_") as logdir, \
-            patched(tloop, make_train_step=make_train_step,
-                    eval_step=synced(tloop.eval_step, times["unc_forward"]),
-                    accumulate_memory=synced(tloop.accumulate_memory, times["memory_fold"]),
-                    finalize_memory=finalize, EvalPipeline=TimedPipeline,
-                    save_checkpoint=lambda path, st, name: saved.append(name)), \
+    times = TrainTimes(state, HALLUCINATORS[mode])
+    cfg = tloop.TrainLoopConfig(mode=mode, nepoch=TRAIN_EPOCHS, log_iter=len(videos),
+                                obj_mem_compute=run_cfg.obj_mem_compute)
+    with tempfile.TemporaryDirectory(prefix="train_log_") as logdir, times.active(), \
             contextlib.redirect_stdout(io.StringIO()) as out:
         writer = MetricsWriter(logdir)
         torch.cuda.synchronize()
@@ -1763,54 +1862,149 @@ def train_phase(det):
         before = torch.cuda.memory_allocated()
         NMS_KERNEL.reset_counts()
         t0 = time.perf_counter()
-        state = tloop.run_training(state, LossFlags(), cfg, lambda: iter(videos),
+        state = tloop.run_training(state, flags, cfg, lambda: iter(videos),
                                    lambda: iter(videos), GT_CAP, writer,
                                    Noise.seeded(1, det.device), model_cfg=model.cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         writer.close()
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(p for ps in times.peaks.values() for p in ps)
     launches = NMS_KERNEL.launches
-    del state.optimizer.step
     for line in out.getvalue().splitlines():
-        log(f"[train] {line}")
-    host = torch.stack([torch.stack(list(m.values())) for m in metrics]).cpu()
-    if not bool(torch.isfinite(host).all()):
-        raise AssertionError(f"train: non-finite losses {host.tolist()}")
-    moved = [k for k, p in params.items() if not torch.equal(p, initial[k])]
-    if len(moved) < 0.9 * len(params):
-        raise AssertionError(f"train: only {len(moved)} of {len(params)} parameters moved")
-    if not epoch0.get("equal") or any(set(c) != {0} for c in epoch0["counts"].values()):
-        raise AssertionError(f"train: the hallucinator moved in epoch 0: {epoch0}")
-    hall = {n: state.optimizer.state[params[n]]["step"].tolist() for n in HALLUCINATOR}
-    if any(torch.equal(params[n], initial[n]) for n in HALLUCINATOR) or any(
-            set(c) != {len(videos)} for c in hall.values()):
-        raise AssertionError(f"train: the hallucinator did not train in epoch 1: {hall}")
+        log(f"{tag} {line}")
+    checked = times.check(state, tag, len(videos))
     if launches != 0:
-        raise AssertionError(f"train: {launches} NMS kernel launches, want 0")
-    if saved[0] != "checkpoint_0" or saved[-1] != "checkpoint_final":
-        raise AssertionError(f"train: checkpoints {saved}")
-    err = train_steps_card_vs_cpu(det.device)
+        raise AssertionError(f"{tag} {launches} NMS kernel launches, want 0")
+    err = train_steps_card_vs_cpu(det.device, mode=mode)
     if err > TRAIN_CARD_CPU_TOL:
-        raise AssertionError(f"train: float64 steps on the card differ from the CPU's by {err}")
+        raise AssertionError(f"{tag} float64 steps on the card differ from the CPU's by {err}")
     result = dict(
         videos=len(videos), epochs=TRAIN_EPOCHS, wall_s=wall,
         ms_per_video=1e3 * wall / (TRAIN_EPOCHS * len(videos)),
-        stages_ms={k: spread(v) for k, v in times.items()},
+        stages_ms={k: spread(v) for k, v in times.times.items()},
         peak_memory_bytes=peak, before_run_bytes=before, nms_launches=launches,
-        checkpoints=saved, adamw=adamw_bound(model), moved_parameters=len(moved),
-        losses={k: host[:, i].tolist() for i, k in enumerate(metrics[0])},
-        hallucinator_counts={"epoch 0": epoch0["counts"], "end": hall},
-        float64_card_vs_cpu_max_rel_err=err)
-    log(f"[train] {TRAIN_EPOCHS} epochs x {len(videos)} videos in {wall:.2f} s "
+        adamw=adamw_bound(model), float64_card_vs_cpu_max_rel_err=err, **checked)
+    log(f"{tag} {TRAIN_EPOCHS} epochs x {len(videos)} videos in {wall:.2f} s "
         f"({result['ms_per_video']:.1f} ms per trained video, validation and the stage "
         f"synchronizes included), peak {peak} bytes ({peak / 2**30:.2f} GiB; {before} before "
-        f"the run), NMS launches {launches}, {len(moved)} of {len(params)} parameters moved; "
-        f"float64 steps card vs CPU: max rel err {err:.3g} (tolerance {TRAIN_CARD_CPU_TOL})")
+        f"the run), NMS launches {launches}, {checked['moved_parameters']} of "
+        f"{checked['parameters']} parameters moved; float64 steps card vs CPU: max rel err "
+        f"{err:.3g} (tolerance {TRAIN_CARD_CPU_TOL})")
     for k, v in result["stages_ms"].items():
-        log(f"[train]   {k} ms: " + json.dumps(v))
-    log(f"[train]   AdamW bound: " + json.dumps(result["adamw"]))
-    del model, state, videos, initial, params
+        log(f"{tag}   {k} ms: " + json.dumps(v))
+    log(f"{tag}   AdamW bound: " + json.dumps(result["adamw"]))
+    del model, state, videos, times
+    torch.cuda.empty_cache()
+    return result
+
+
+def sgdet_train_phase(det):
+    """TEMPURA sgdet training at full width, as ``tempura_train --mode
+    sgdet`` builds the model (1 + 3 layers, K = 4, 3 tracking layers,
+    linear object head, ``euc_con``; float32, TF32 off), on the calibrated
+    ResNet-101 detector: four videos of the serving frames (16 x 608x1008,
+    RPN 6000 / 100) with synthetic annotations of 1 person + 3 objects a
+    frame, through ``SgdetFrontend(..., is_train=True)`` (``SgdetCaps(16,
+    64)``; an entry capacity that admits 16 detections a frame and every
+    SUPPLY row) and ``run_training``, 2 epochs, validated on the same
+    videos through the test frontend and ``EvalPipeline("sgdet")``
+    (``vidsgg``'s ungrouped union pooling). Times detect + plan + pack, the
+    train step and the other stages, with each stage's own peak memory.
+    Checks: no video skipped, the NMS kernel launched twice per train video
+    and three times per validation video, every call bit-equal to its plain
+    version on the inputs the path gave it, finite losses, moved
+    parameters, the hallucinator untouched through epoch 0."""
+    from vidsgg_torch.detector import SgdetCaps, SgdetFrontend
+    from vidsgg_torch.models.noise import Noise
+    from vidsgg_torch.ops.nms import NMS_KERNEL
+    from vidsgg_torch.serving_setup import DETS, SGDET_TRAIN_CAP, SUPPLY_CAP
+    from vidsgg_torch.serving_setup import sgdet_train_annotation
+    from vidsgg_torch.train import create_train_state
+    from vidsgg_torch.train import loop as tloop
+    from vidsgg_torch.train.metrics import MetricsWriter
+
+    tag = "[train sgdet]"
+    t0 = time.perf_counter()
+    model, flags, run_cfg = train_model("sgdet", det.device)
+    state = create_train_state(model, steps_per_epoch=len(SGDET_TRAIN_SEEDS))
+    front = SgdetFrontend(det, SgdetCaps(DETS, SUPPLY_CAP), SGDET_TRAIN_CAP, device=det.device)
+    videos = [(make_frames(seed, FRAMES, H, W, det.device), sgdet_train_annotation(seed))
+              for seed in SGDET_TRAIN_SEEDS]
+    hw = (float(H), float(W))
+    times = TrainTimes(state, HALLUCINATORS["predcls"])
+    for k in ("detect_plan_pack", "detect_test"):
+        times.times[k], times.peaks[k] = [], []
+    train_entry = times.stage("detect_plan_pack", front)
+    test_entry = times.stage("detect_test", front)
+    skipped, rows = [], []
+
+    def train_data():
+        for frames, ann in videos:
+            try:
+                entry, fmaps = train_entry(frames, hw, 1.0, video_size=(float(W), float(H)),
+                                           gt_annotation=ann, is_train=True)
+            except ValueError as e:
+                skipped.append(str(e))
+                continue
+            n = int(entry.obj_mask.sum())
+            rows.append(dict(rows=n, supply=int((entry.scores[:n] == 1.0).sum()),
+                             pairs=int(entry.pair_mask.sum())))
+            yield entry, fmaps, ann
+
+    def val_data():
+        for frames, ann in videos:
+            entry, fmaps = test_entry(frames, hw, 1.0, video_size=(float(W), float(H)))
+            yield entry, fmaps, ann
+
+    torch.cuda.synchronize()
+    log(f"{tag} TEMPURA {model.cfg}, {sum(p.numel() for p in model.parameters())} "
+        f"parameters, SgdetCaps({DETS}, {SUPPLY_CAP}), {SGDET_TRAIN_CAP}, "
+        f"{len(videos)} videos of {FRAMES}x{H}x{W} ready in {time.perf_counter() - t0:.1f} s")
+    cfg = tloop.TrainLoopConfig(mode="sgdet", nepoch=TRAIN_EPOCHS, log_iter=len(videos))
+    calls = []
+    with tempfile.TemporaryDirectory(prefix="train_log_") as logdir, times.active(), \
+            recording_nms_calls(calls), contextlib.redirect_stdout(io.StringIO()) as out:
+        writer = MetricsWriter(logdir)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        NMS_KERNEL.reset_counts()
+        t0 = time.perf_counter()
+        state = tloop.run_training(state, flags, cfg, train_data, val_data, SGDET_TRAIN_CAP,
+                                   writer, Noise.seeded(1, det.device), model_cfg=model.cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        writer.close()
+    launches, launches_by = NMS_KERNEL.launches, dict(NMS_KERNEL.launches_by)
+    for line in out.getvalue().splitlines():
+        log(f"{tag} {line}")
+    if skipped:
+        raise AssertionError(f"{tag} {len(skipped)} videos skipped: {skipped}")
+    n_train = n_val = TRAIN_EPOCHS * len(videos)
+    want = 2 * n_train + 3 * n_val
+    if launches != want or len(calls) != want:
+        raise AssertionError(f"{tag} {launches} NMS launches ({len(calls)} recorded), want "
+                             f"{want}: 2 per train video, 3 per validation video")
+    shapes = check_recorded_nms(calls, "sgdet", "training")
+    del calls
+    checked = times.check(state, tag, len(videos))
+    peaks = {k: max(v) for k, v in times.peaks.items() if v}
+    result = dict(
+        videos=len(videos), epochs=TRAIN_EPOCHS, wall_s=wall,
+        ms_per_video=1e3 * wall / n_train, skipped=len(skipped), train_rows=rows,
+        stages_ms={k: spread(v) for k, v in times.times.items()},
+        stage_peak_bytes=peaks, peak_memory_bytes=max(peaks.values()),
+        before_run_bytes=before, nms_launches=launches, nms_launches_by=launches_by,
+        nms_calls_bit_equal=len(shapes), adamw=adamw_bound(model), **checked)
+    log(f"{tag} {TRAIN_EPOCHS} epochs x {len(videos)} videos in {wall:.2f} s "
+        f"({result['ms_per_video']:.1f} ms per trained video with its validation video), "
+        f"0 skipped, NMS launches {launches} ({launches_by}; 2 per train video, 3 per "
+        f"validation video), every call bit-equal to the plain version; peak "
+        f"{result['peak_memory_bytes'] / 2**30:.2f} GiB ({before} bytes before the run)")
+    for k, v in result["stages_ms"].items():
+        log(f"{tag}   {k} ms: " + json.dumps(v) + f", peak {peaks.get(k, 0) / 2**30:.2f} GiB")
+    log(f"{tag}   rows per train entry: " + json.dumps(rows))
+    log(f"{tag}   AdamW bound: " + json.dumps(result["adamw"]))
+    del model, state, videos, times, front
     torch.cuda.empty_cache()
     return result
 
@@ -1849,14 +2043,21 @@ def same_state(model, banks: dict, payload: dict, what: str, optimizer=None, ste
 
 
 def train_cli_phase(det):
-    """``tempura_train`` as a user runs it: an AG-format tree with a train
-    split (two 16-frame videos) and a test split (two), random 480x270
-    PNGs, the calibrated detector as a jwyang ``.pth``, default TEMPURA
-    (1 + 3 layers, K = 6), one epoch, checkpoints on disk. Then ``--resume``
-    (restores ``best_recall``: the state must equal the file's bit for bit)
-    and ``tempura_test --ckpt ... --ckpt_name checkpoint_final`` (the served
-    model and banks must equal the file's, which must equal the train run's
-    final state). The checkpoint directory is deleted at the end."""
+    """``tempura_train`` as a user runs it, in predcls, sgcls and sgdet: an
+    AG-format tree a mode with a train split (two videos) and a test split
+    (two), random 480x270 PNGs, the calibrated detector as a jwyang
+    ``.pth``, the default TEMPURA of the mode (1 + 3 layers; sgcls and
+    sgdet K = 4 with tracking), one epoch, checkpoints on disk; sgdet's
+    videos are 12 frames (16 detections a frame and the SUPPLY rows fit
+    ``vidsgg``'s largest bucket) and its source may skip none. Then
+    ``--resume`` (restores ``best_recall``, or ``checkpoint_final`` copied
+    to that name where the run saved no ``best_recall``: the state must
+    equal the file's bit for bit) and ``tempura_test --ckpt ... --ckpt_name
+    checkpoint_final`` (the served model and banks must equal the file's,
+    which must equal the train run's final state). NMS launches: none in
+    predcls and sgcls; in sgdet 2 per train video (the CLI's probe of its
+    first video included) and 3 per validation video. Each mode's directory
+    is deleted before the next."""
     import shutil
 
     from vidsgg_torch.cli import tempura_test
@@ -1864,86 +2065,105 @@ def train_cli_phase(det):
     from vidsgg_torch.train.checkpoint import checkpoint_file, load_payload
 
     results = {}
-    with tempfile.TemporaryDirectory(prefix="ag_train_") as tmp:
-        root = os.path.join(tmp, "ag")
-        write_ag_split(root, TRAIN_CLI_VIDEOS)
-        pth = os.path.join(tmp, "faster_rcnn_ag.pth")
-        torch.save({"model": det.state_dict()}, pth)
-        save = os.path.join(tmp, "checkpoints")
-        common = ["--mode", "predcls", "--data_path", root, "--model_path", pth,
-                  "--frame_size", str(CLI_FRAME_SIZE)]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        before = torch.cuda.memory_allocated()
-        NMS_KERNEL.reset_counts()
-        state, text, seconds = run_train_cli(common + ["--nepoch", "1", "-log_iter", "1",
-                                                       "--save_path", save])
-        peak = torch.cuda.max_memory_allocated()
-        per_video = [float(x) for x in re.findall(r"^epoch 0 step \d+  ([0-9.]+)s/video", text, re.M)]
-        if len(per_video) != 2 or NMS_KERNEL.launches != 0:
-            raise AssertionError(f"tempura_train: {len(per_video)} step lines, NMS launches "
-                                 f"{NMS_KERNEL.launches}: {text[-800:]}")
-        files = sorted(os.listdir(save))
-        log(f"[train cli] tempura_train: {seconds:.1f} s, s/video per step line {per_video}, "
-            f"peak {peak} bytes ({(peak - before) / 2**30:.2f} GiB its own), files {files}")
-        for line in text.splitlines():
-            if line.startswith(("epoch", "new best", ">>>")):
-                log(f"[train cli]   {line}")
-        sizes = {f: os.path.getsize(os.path.join(save, f)) for f in files}
-        final = load_payload(save, "checkpoint_final", det.device)
-        same_state(state.model, {"rel_memory": state.rel_memory, "obj_memory": state.obj_memory,
-                                 "mem_active": state.mem_active}, final,
-                   "checkpoint_final against the train run's state", state.optimizer, state.step)
-        del state
-        # --resume reads best_recall and trains no further epoch
-        resumed, text2, seconds2 = run_train_cli(common + ["--nepoch", "0", "--resume", save,
-                                                           "--save_path",
-                                                           os.path.join(tmp, "resumed")])
-        best = load_payload(save, "best_recall", det.device)
-        same_state(resumed.model, {"rel_memory": resumed.rel_memory,
-                                   "obj_memory": resumed.obj_memory,
-                                   "mem_active": resumed.mem_active}, best,
-                   "--resume against best_recall", resumed.optimizer, resumed.step)
-        line = re.search(r"^resumed from .* at step (\d+)$", text2, re.M)
-        if line is None or int(line.group(1)) != best["step"]:
-            raise AssertionError(f"--resume printed no resume line: {text2[-500:]}")
-        del resumed, best
-        # tempura_test serves checkpoint_final
-        served = {}
-        restore = tempura_test.restore_serving
+    for mode in ("predcls", "sgcls", "sgdet"):
+        tag = f"[train cli {mode}]"
+        with tempfile.TemporaryDirectory(prefix=f"ag_train_{mode}_") as tmp:
+            root = os.path.join(tmp, "ag")
+            write_ag_split(root, TRAIN_CLI_VIDEOS[mode])
+            pth = os.path.join(tmp, "faster_rcnn_ag.pth")
+            torch.save({"model": det.state_dict()}, pth)
+            save = os.path.join(tmp, "checkpoints")
+            common = ["--mode", mode, "--data_path", root, "--model_path", pth,
+                      "--frame_size", str(CLI_FRAME_SIZE)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            NMS_KERNEL.reset_counts()
+            state, text, seconds = run_train_cli(common + ["--nepoch", "1", "-log_iter", "1",
+                                                           "--save_path", save])
+            peak = torch.cuda.max_memory_allocated()
+            launches = NMS_KERNEL.launches
+            per_video = [float(x) for x in
+                         re.findall(r"^epoch 0 step \d+  ([0-9.]+)s/video", text, re.M)]
+            # sgdet: the probe of the first train video, two train videos,
+            # two validation videos
+            want = 2 * 3 + 3 * 2 if mode == "sgdet" else 0
+            skipped = re.search(r"skipped=[1-9]|\[sgdet_source\] skipped", text)
+            if len(per_video) != 2 or launches != want or skipped:
+                raise AssertionError(f"{tag} {len(per_video)} step lines, NMS launches "
+                                     f"{launches} (want {want}): {text[-800:]}")
+            files = sorted(os.listdir(save))
+            log(f"{tag} tempura_train: {seconds:.1f} s, s/video per step line {per_video}, "
+                f"NMS launches {launches}, peak {peak} bytes ({(peak - before) / 2**30:.2f} "
+                f"GiB its own), files {files}")
+            for line in text.splitlines():
+                if line.startswith(("epoch", "new best", ">>>")):
+                    log(f"{tag}   {line}")
+            sizes = {f: os.path.getsize(os.path.join(save, f)) for f in files}
+            final = load_payload(save, "checkpoint_final", det.device)
+            same_state(state.model, {"rel_memory": state.rel_memory,
+                                     "obj_memory": state.obj_memory,
+                                     "mem_active": state.mem_active}, final,
+                       f"{tag} checkpoint_final against the train run's state",
+                       state.optimizer, state.step)
+            del state
+            # --resume reads best_recall and trains no further epoch; a run
+            # whose R@20 never rose above 0 (random weights: sgdet) saved
+            # none, as vidsgg's would, and resumes from checkpoint_final
+            resume_from = "best_recall"
+            if not os.path.exists(checkpoint_file(save, "best_recall")):
+                shutil.copyfile(checkpoint_file(save, "checkpoint_final"),
+                                checkpoint_file(save, "best_recall"))
+                resume_from = "checkpoint_final"
+            resumed, text2, seconds2 = run_train_cli(common + [
+                "--nepoch", "0", "--resume", save, "--save_path", os.path.join(tmp, "resumed")])
+            best = load_payload(save, "best_recall", det.device)
+            same_state(resumed.model, {"rel_memory": resumed.rel_memory,
+                                       "obj_memory": resumed.obj_memory,
+                                       "mem_active": resumed.mem_active}, best,
+                       f"{tag} --resume against {resume_from}", resumed.optimizer, resumed.step)
+            line = re.search(r"^resumed from .* at step (\d+)$", text2, re.M)
+            if line is None or int(line.group(1)) != best["step"]:
+                raise AssertionError(f"{tag} --resume printed no resume line: {text2[-500:]}")
+            del resumed, best
+            # tempura_test serves checkpoint_final
+            served = {}
+            restore = tempura_test.restore_serving
 
-        def keep(s, payload):
-            served["state"] = restore(s, payload)
-            return served["state"]
+            def keep(s, payload):
+                served["state"] = restore(s, payload)
+                return served["state"]
 
-        with patched(tempura_test, restore_serving=keep):
-            evs, text3, n, seconds3 = run_cli(common + [
-                "--ckpt", save, "--ckpt_name", "checkpoint_final",
-                "--output_path", os.path.join(tmp, "out")])
-        s = served["state"]
-        same_state(s.model, {"rel_memory": s.rel_memory, "obj_memory": s.obj_memory,
-                             "mem_active": s.mem_active}, final,
-                   "tempura_test --ckpt against checkpoint_final")
-        if "restored checkpoint checkpoint_final" not in text3 or n != 2:
-            raise AssertionError(f"tempura_test --ckpt: {text3[-500:]}")
-        bad = {f"{ev.constraint} {m}@{k}": f(k) for ev in evs for k in ev.KS
-               for m, f in (("R", ev.recall_at), ("mR", ev.mean_recall_at))
-               if not (np.isfinite(f(k)) and 0 <= f(k) <= 1)}
-        if bad:
-            raise AssertionError(f"tempura_test --ckpt: R/mR outside [0, 1]: {bad}")
-        del served, s, final
-        shutil.rmtree(save)
-        if os.path.exists(save):
-            raise AssertionError("the checkpoint directory was not deleted")
-        results = dict(train_seconds=seconds, s_per_video_lines=per_video,
-                       own_peak_bytes=peak - before, checkpoint_bytes=sizes,
-                       resume_seconds=seconds2, test_seconds=seconds3,
-                       test_r20={ev.constraint: ev.recall_at(20) for ev in evs})
-        log(f"[train cli] --resume equal to best_recall bit for bit ({seconds2:.1f} s); "
-            f"tempura_test --ckpt served checkpoint_final, equal to it and to the train run's "
-            f"state bit for bit ({seconds3:.1f} s); checkpoint directory deleted")
-    torch.cuda.empty_cache()
-    log("[train cli] " + json.dumps(results))
+            with patched(tempura_test, restore_serving=keep):
+                evs, text3, n, seconds3 = run_cli(common + [
+                    "--ckpt", save, "--ckpt_name", "checkpoint_final",
+                    "--output_path", os.path.join(tmp, "out")])
+            s = served["state"]
+            same_state(s.model, {"rel_memory": s.rel_memory, "obj_memory": s.obj_memory,
+                                 "mem_active": s.mem_active}, final,
+                       f"{tag} tempura_test --ckpt against checkpoint_final")
+            if "restored checkpoint checkpoint_final" not in text3 or n != 2:
+                raise AssertionError(f"{tag} tempura_test --ckpt: {text3[-500:]}")
+            bad = {f"{ev.constraint} {m}@{k}": f(k) for ev in evs for k in ev.KS
+                   for m, f in (("R", ev.recall_at), ("mR", ev.mean_recall_at))
+                   if not (np.isfinite(f(k)) and 0 <= f(k) <= 1)}
+            if bad:
+                raise AssertionError(f"{tag} tempura_test --ckpt: R/mR outside [0, 1]: {bad}")
+            del served, s, final
+            shutil.rmtree(save)
+            if os.path.exists(save):
+                raise AssertionError(f"{tag} the checkpoint directory was not deleted")
+            results[mode] = dict(train_seconds=seconds, s_per_video_lines=per_video,
+                                 nms_launches=launches, own_peak_bytes=peak - before,
+                                 checkpoint_bytes=sizes, resumed_from=resume_from,
+                                 resume_seconds=seconds2,
+                                 test_seconds=seconds3,
+                                 test_r20={ev.constraint: ev.recall_at(20) for ev in evs})
+            log(f"{tag} --resume equal to {resume_from} bit for bit ({seconds2:.1f} s); "
+                f"tempura_test --ckpt served checkpoint_final, equal to it and to the train "
+                f"run's state bit for bit ({seconds3:.1f} s); checkpoint directory deleted")
+        torch.cuda.empty_cache()
+        log(f"{tag} " + json.dumps(results[mode]))
     return results
 
 
@@ -1993,7 +2213,8 @@ def main() -> int:
     del videos
     torch.cuda.empty_cache()
     cli_phase(det)
-    train = train_phase(det)
+    train = {mode: train_phase(det, mode) for mode in ("predcls", "sgcls")}
+    train["sgdet"] = sgdet_train_phase(det)
     train_cli = train_cli_phase(det)
     # launches on the main paths: TEMPURA's and TEAT-GT's sgdet videos, in
     # float32 and in bfloat16
@@ -2005,9 +2226,13 @@ def main() -> int:
                        for k, v in paths.items()}
     ranked_launches.update({k: sum(r["launches_by_dtype"].get("ranked float32", 0) for r in v)
                             for k, v in bf16_paths.items()})
-    # TEMPURA predcls training reaches no NMS
-    launches["tempura predcls train"] = ranked_launches["tempura predcls train"] = \
-        train["nms_launches"]
+    # TEMPURA predcls and sgcls training reach no NMS; sgdet training's
+    # detect launches it twice a train video, validation three times
+    for mode in ("predcls", "sgcls"):
+        launches[f"tempura {mode} train"] = ranked_launches[f"tempura {mode} train"] = \
+            train[mode]["nms_launches"]
+    launches["tempura sgdet train"] = train["sgdet"]["nms_launches"]
+    ranked_launches["tempura sgdet train"] = train["sgdet"]["nms_launches_by"].get("ranked", 0)
 
     def entry(name, replaces, call_names, launched, err, more_calls=()):
         sel = [timings[c] for c in call_names]
@@ -2048,7 +2273,8 @@ def main() -> int:
     for build, run in bf16_runs.items():
         log(f"[bf16 {build}] " + json.dumps(run))
     log("[score] " + json.dumps(scores))
-    log("[train] " + json.dumps(train))
+    for mode, run in train.items():
+        log(f"[train {mode}] " + json.dumps(run))
     log("[train cli] " + json.dumps(train_cli))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

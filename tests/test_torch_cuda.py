@@ -14,7 +14,9 @@ relabel on the card against its CPU run (bit for bit). Then TEAT-GT: the
 masked Laplacian eigendecomposition on the card against float64 on the
 CPU (eigenvalues and the projector of each eigenvalue cluster), and a
 predcls video served in float32 on the card against float64 on the CPU
-with the CPU's eigenvectors injected.
+with the CPU's eigenvectors injected. Then training: float64 predcls and
+sgcls train steps on the card against the CPU's, and the sgdet train
+frontend's entry and its two kernel launches.
 Skipped where there is no CUDA card.
 
 This file imports neither JAX nor ``vidsgg``, so it also runs on a machine
@@ -422,12 +424,81 @@ def test_teatgt_predcls_card_float32_matches_cpu_float64(cuda_device, gt_models)
 
 
 @pytest.mark.cuda
-def test_float64_train_steps_on_the_card_match_cpu(cuda_device):
-    """Two predcls train steps of a one-layer TEMPURA (the second with
-    filled memory banks) in float64 on the card and on the CPU, the CPU's
+@pytest.mark.parametrize("mode", ["predcls", "sgcls"])
+def test_float64_train_steps_on_the_card_match_cpu(cuda_device, mode):
+    """Two train steps of a one-layer TEMPURA (the second with filled
+    memory banks; sgcls with the OSPU's train phase, one tracking layer and
+    the object memory) in float64 on the card and on the CPU, the CPU's
     dropout masks and GMM noise replayed on the card: every loss, gradient
     norm, bank, parameter and batch-norm statistic within 1e-8 x max(1,
     max|CPU's|)."""
     from vidsgg_torch.serving_setup import train_steps_card_vs_cpu
 
-    assert train_steps_card_vs_cpu(cuda_device) <= 1e-8
+    assert train_steps_card_vs_cpu(cuda_device, mode=mode) <= 1e-8
+
+
+@pytest.mark.cuda
+def test_sgdet_train_entry_card_matches_cpu(cuda_device, monkeypatch):
+    """The sgdet train frontend (a tiny detector in float64, two 64x96
+    frames, an annotation on the CPU's detections plus GT boxes it missed)
+    on the card against the CPU: two NMS kernel launches (the RPN and the
+    class grid), each bit-equal to its plain version on the inputs the path
+    gave it; the entry's discrete fields equal, its floating fields within
+    1e-5 x max(1, max|CPU's|) (both round the head's output to float32)."""
+    import copy
+    import dataclasses
+
+    from vidsgg_torch.data import EntryCapacity, synthetic_video_annotation
+    from vidsgg_torch.detector import FasterRCNN, RPNConfig, SgdetCaps, SgdetFrontend
+    from vidsgg_torch.detector import sgdet
+
+    f, h, w = 2, 64, 96
+    det = FasterRCNN(rpn_cfg=RPNConfig(pre_nms_top_n=64, post_nms_top_n=16),
+                     base_blocks=(1, 1, 1), head_blocks=1, device="cpu",
+                     generator=torch.Generator().manual_seed(3)).double()
+    with torch.no_grad():
+        det.RCNN_cls_score.weight.mul_(40.0)
+    caps, cap = SgdetCaps(8, 16), EntryCapacity(4, 32, 16)
+    frames = torch.from_numpy(np.random.RandomState(4).rand(f, h, w, 3) * 80.0 - 40.0)
+    hw = (float(h), float(w))
+    cpu = SgdetFrontend(det, caps, cap, device="cpu")
+    with torch.no_grad():
+        dets = cpu.detect(frames.double(), torch.tensor(hw), 1.0)
+    ann = synthetic_video_annotation(num_frames=f, objs_per_frame=2, seed=5, image_wh=(w, h))
+    for i, frame in enumerate(ann):
+        boxes = dets["boxes"][i][dets["mask"][i]].numpy()
+        assert len(boxes) >= 2
+        frame[0]["person_bbox"] = boxes[0][None].astype(np.float32)
+        frame[1]["bbox"] = boxes[1].astype(np.float32)
+    want, _ = cpu(frames, hw, 1.0, gt_annotation=ann, is_train=True)
+
+    calls = []
+    kernel_fn = sgdet.batched_class_nms
+
+    def recording(fn, plain):
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            calls.append((out.clone(), plain(*args, **kw)))
+            return out
+        return wrapped
+
+    from vidsgg_torch.detector import rpn
+    monkeypatch.setattr(rpn, "nms_mask_batched",
+                        recording(rpn.nms_mask_batched, tnms.nms_mask_batched_plain))
+    monkeypatch.setattr(sgdet, "batched_class_nms",
+                        recording(kernel_fn, tnms.nms_mask_batched_plain))
+    card = SgdetFrontend(copy.deepcopy(det).to(cuda_device), caps, cap, device=cuda_device)
+    before = tnms.NMS_KERNEL.launches
+    got, _ = card(frames.to(cuda_device), hw, 1.0, gt_annotation=ann, is_train=True)
+    torch.cuda.synchronize()
+    assert tnms.NMS_KERNEL.launches == before + 2 and len(calls) == 2
+    for out, plain in calls:
+        assert torch.equal(out, plain)
+    assert not got.features.is_inference()
+    for field in dataclasses.fields(want):
+        g, wt = getattr(got, field.name).cpu(), getattr(want, field.name)
+        if wt.is_floating_point() and field.name not in ("spatial_gt", "contacting_gt"):
+            scale = max(1.0, float(wt.abs().max())) if wt.numel() else 1.0
+            assert float((g - wt).abs().max() if wt.numel() else 0.0) <= 1e-5 * scale, field.name
+        else:
+            assert torch.equal(g, wt), field.name

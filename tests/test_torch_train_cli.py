@@ -2,7 +2,8 @@
 and one decoder layer at the full widths, and what it hands on:
 
 * ``tempura_train --synthetic 4 --nepoch 2 -log_iter 1`` prints
-  ``vidsgg``'s line formats (``vidsgg/train/loop.py``'s f-strings) and
+  ``vidsgg``'s line formats (``vidsgg/train/loop.py``'s f-strings, the
+  metrics in the sorted key order of ``vidsgg``'s jitted step) and
   saves ``vidsgg``'s checkpoint names in its order: ``checkpoint_0``, then
   ``best_recall`` / ``best_Mrecall`` right after each "new best" line, and
   ``checkpoint_final``; and trains (the step count, the banks, the
@@ -12,15 +13,16 @@ and one decoder layer at the full widths, and what it hands on:
   and moments and both banks exactly;
 * ``tempura_test --ckpt DIR --ckpt_name NAME`` serves the restored model
   and banks: its grids equal those of the trained state served directly;
-* the refused modes and flags exit non-zero naming their ROADMAP item, and
-  without ``--device cpu`` the CLI raises here (no card);
+* the refused flags exit non-zero naming their ROADMAP item, and without
+  ``--device cpu`` the CLI raises here (no card);
 * the video sources' order under the same global NumPy seed (synthetic,
   ``shuffle`` and ``stable=False``) and ``RandomState(seed)`` (Action
   Genome) against ``vidsgg``'s, and their entries built under ``no_grad``.
 
 No model checkpoint reaches the disk: the loop's saver and the CLIs'
 loaders are replaced by an in-memory store (``torch.save`` into bytes),
-which keeps only the payloads a test reads back.
+which keeps only the payloads a test reads back. sgcls and sgdet runs:
+``test_torch_train_cli_modes.py``.
 """
 
 import contextlib
@@ -47,10 +49,11 @@ from vidsgg_torch.train.checkpoint import checkpoint_payload, restore_payload
 
 LAYERS = ["-enc_layer", "1", "-dec_layer", "1"]
 NUM = r"-?[0-9]+\.[0-9]{4}"
+# the metrics in vidsgg's order: its jitted step returns them sorted by key
 STEP_LINE = re.compile(
     rf"^epoch (\d+) step (\d+)  [0-9]+\.[0-9]{{3}}s/video  attention_relation_loss={NUM}  "
-    rf"spatial_relation_loss={NUM}  contacting_relation_loss={NUM}  total_loss={NUM}  "
-    rf"grad_norm={NUM}$", re.M)
+    rf"contacting_relation_loss={NUM}  grad_norm={NUM}  spatial_relation_loss={NUM}  "
+    rf"total_loss={NUM}$", re.M)
 VAL_LINE = re.compile(
     rf"^epoch (\d+) val: R@20={NUM} mR@20={NUM} \(semi R@20={NUM}, no R@20={NUM}\)$", re.M)
 BEST_LINE = re.compile(rf"^new best (recall|Mrecall) {NUM} at epoch (\d+)$", re.M)
@@ -103,6 +106,20 @@ def trained(tmp_path_factory):
     del state
 
 
+def vidsgg_saves(lines) -> list:
+    """vidsgg's saves for a run's log lines: checkpoint_0 after epoch 0's
+    validation, then one save per "new best" line in its order, and
+    checkpoint_final last."""
+    want = []
+    for line in lines:
+        if VAL_LINE.match(line) and line.startswith("epoch 0 "):
+            want.append("checkpoint_0")
+        found = BEST_LINE.match(line)
+        if found:
+            want.append(f"best_{found.group(1)}")
+    return want + ["checkpoint_final"]
+
+
 def test_synthetic_run_prints_and_saves_as_vidsgg(trained):
     state, out, store = trained
     lines = out.splitlines()
@@ -111,17 +128,7 @@ def test_synthetic_run_prints_and_saves_as_vidsgg(trained):
     steps = STEP_LINE.findall(out)
     assert [(int(e), int(s)) for e, s in steps] == [(i // 4, i + 1) for i in range(8)]
     assert [int(e) for e in VAL_LINE.findall(out)] == [0, 1]
-    # vidsgg's saves: checkpoint_0 after epoch 0's validation, then one save
-    # per "new best" line in its order, and checkpoint_final last
-    want = []
-    for line in lines:
-        if VAL_LINE.match(line) and line.startswith("epoch 0 "):
-            want.append("checkpoint_0")
-        found = BEST_LINE.match(line)
-        if found:
-            want.append(f"best_{found.group(1)}")
-    want.append("checkpoint_final")
-    assert [name for _, name in store.names] == want
+    assert [name for _, name in store.names] == vidsgg_saves(lines)
     assert {path for path, _ in store.names} == {store.names[0][0]}
     assert state.step == 8 and state.optimizer.updates == 8 and bool(state.mem_active)
     assert float(state.rel_memory.abs().max()) > 0
@@ -219,11 +226,10 @@ def test_train_cli_on_an_ag_tree(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mode", "sgcls"], "item 5a-ii"),
-    (["--mode", "sgdet"], "item 5b"),
     (["--data_parallel", "2"], "item 7b"),
     (["--int8"], "item 7b"),
     (["--profile", "trace/"], "item 7b"),
+    (["--pair_detect", "2", "--mode", "sgdet"], "item 7b"),
 ])
 def test_refused_flags_exit_naming_their_item(flags, item):
     with pytest.raises(SystemExit) as exc:

@@ -13,7 +13,8 @@ across by ``convert.py:tempura_from_jax``) and run their own train step
   head and step) is recorded inside ``vidsgg``'s jitted step
   (``jax.debug.callback``) and dispatched to the port's heads by class
   count (attention 3, spatial 6, contacting 17), the scheme of
-  ``tests/test_reference_oracle_grad.py``'s ``_SharedNoise``;
+  ``tests/test_reference_oracle_grad.py``'s ``_SharedNoise``
+  (``train_parity_utils.SharedNoise``);
 * every dropout mask ``vidsgg`` draws (``jax.random.bernoulli``) is
   recorded in call order with its shape, and the port's train step
   replays them (``ReplayNoise`` checks each shape and that all were
@@ -27,14 +28,13 @@ gradients, skipped) and count 1, 2 in epoch 1.
 """
 
 import dataclasses
-import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 from torch_parity_utils import entry_to_torch, random_tree
+from train_parity_utils import SharedNoise, adamw_counts, close, compare_state
 
 from vidsgg.data import build_gt_entry
 from vidsgg.data.entry import Entry as JEntry
@@ -49,24 +49,14 @@ from vidsgg.train import steps as jsteps
 from vidsgg.train.state import TrainState as JTrainState
 from vidsgg_torch.convert import tempura_from_jax
 from vidsgg_torch.debias import memory as tmem
-from vidsgg_torch.models.noise import ReplayNoise
 from vidsgg_torch.models.tempura import Tempura, TempuraConfig
 from vidsgg_torch.train import LossFlags, create_train_state, eval_step, make_train_step
 
 CAP = JCap(max_frames=4, max_objs=10, max_pairs=8)
 K = 6
 VIDEOS, EPOCHS = 2, 2
-TOL = 1e-8
 HALLUCINATOR = ("glocal_transformer.mem_attention.in_proj_weight",
                 "glocal_transformer.mem_attention.out_proj.weight")
-
-
-def close(got, want, name):
-    got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
-    want = np.asarray(want)
-    assert got.shape == want.shape, (name, got.shape, want.shape)
-    np.testing.assert_allclose(got, want, rtol=0,
-                               atol=TOL * max(1.0, float(np.abs(want).max())), err_msg=name)
 
 
 def _entry(seed):
@@ -85,76 +75,6 @@ def _entry(seed):
                         if np.asarray(getattr(e, f.name)).dtype.kind == "f"})
 
 
-class SharedNoise:
-    """``vidsgg``'s random draws in its jitted step, recorded with
-    ``jax.debug.callback``: the GMM noise by class count (one [P, K, C] draw
-    per head), the dropout masks under the index of their call in the traced
-    step (the program order)."""
-
-    def __init__(self, monkeypatch):
-        self.shapes = []         # the traced step's mask shapes, in call order
-        self.masks, self.eps = {}, {}
-        bernoulli, normal = jax.random.bernoulli, jax.random.normal
-
-        def recording_bernoulli(key, p=0.5, shape=None):
-            mask = bernoulli(key, p, shape)
-            index = len(self.shapes)
-            self.shapes.append(tuple(shape))
-            jax.debug.callback(functools.partial(self._store, self.masks, index), mask)
-            return mask
-
-        def recording_normal(key, shape, dtype=None):
-            pad, k, c = shape
-            assert (pad, k) == (CAP.max_pairs, K), shape
-            eps = normal(key, shape, dtype)
-            jax.debug.callback(functools.partial(self._store, self.eps, c), eps)
-            return eps
-
-        monkeypatch.setattr(jax.random, "bernoulli", recording_bernoulli)
-        monkeypatch.setattr(jax.random, "normal", recording_normal)
-
-    @staticmethod
-    def _store(table, key, value):
-        table[key] = np.array(value)
-
-    def replay(self):
-        """The last step's draws for the port, then cleared."""
-        assert sorted(self.masks) == list(range(len(self.shapes)))
-        assert sorted(self.eps) == [3, 6, 17]
-        masks = [self.masks[i] for i in range(len(self.shapes))]
-        assert [m.shape for m in masks] == self.shapes
-        out = ReplayNoise([torch.from_numpy(self.eps[c]) for c in (3, 6, 17)],
-                          [torch.from_numpy(m) for m in masks])
-        self.masks.clear()
-        self.eps.clear()
-        return out
-
-
-def _compare_state(jstate, port, tcfg, what):
-    want = tempura_from_jax({"params": jax.tree.map(np.asarray, jstate.params),
-                             "batch_stats": jax.tree.map(np.asarray, jstate.batch_stats)}, tcfg)
-    got = port.state_dict()
-    assert sorted(got) == sorted(want)
-    for k in want:
-        close(got[k], want[k], f"{what}: {k}")
-
-
-def _counts(jstate, port, opt):
-    """Every parameter's AdamW counts, element by element, in the port's
-    layout: ``vidsgg``'s per-tensor counts broadcast to its tensors' shapes
-    and carried across as the parameters are (a packed q/k/v projection
-    holds three blocks), and the port's per-segment counts likewise."""
-    jcounts = jax.tree.map(lambda c, p: np.full(p.shape, int(c), np.int16),
-                           jstate.opt_state[1].count, jstate.params)
-    want = tempura_from_jax({"params": jcounts, "batch_stats": jstate.batch_stats}, port.cfg)
-    got = {}
-    for n, p in port.named_parameters():
-        step = opt.state[p]["step"].to(torch.int16)
-        rows = p.shape[0] // len(step)
-        got[n] = step.repeat_interleave(rows).reshape((-1,) + (1,) * (p.dim() - 1)).expand(p.shape)
-    return got, want
-
-
 def test_two_epochs_of_predcls_training_match_vidsgg(monkeypatch):
     kw = dict(mode="predcls", enc_layers=1, dec_layers=1, k=K, rel_head="gmm")
     jcfg, tcfg = JConfig(**kw), TempuraConfig(**kw)
@@ -164,7 +84,7 @@ def test_two_epochs_of_predcls_training_match_vidsgg(monkeypatch):
     with jax.enable_x64(True):
         shapes = expected_tempura_shapes(jcfg, JEntry.zeros(CAP))
     variables = random_tree(shapes, np.random.default_rng(1), np.float64)
-    noise = SharedNoise(monkeypatch)
+    noise = SharedNoise(monkeypatch, heads=(3, 6, 17), rows={(CAP.max_pairs, K)})
 
     with jax.enable_x64(True):
         model = JTempura(jcfg)
@@ -196,11 +116,11 @@ def test_two_epochs_of_predcls_training_match_vidsgg(monkeypatch):
                 assert len(replay.masks) == 8
                 tm = ttrain(state, te, replay)
                 assert replay.exhausted()
-                assert sorted(tm) == sorted(jm)
+                assert list(tm) == list(jm)        # the key order of vidsgg's log lines
                 for k in jm:
                     close(tm[k], jm[k], f"step {step} {k}")
-                _compare_state(jstate, port, tcfg, f"after step {step}")
-                got, want = _counts(jstate, port, state.optimizer)
+                compare_state(jstate, port, tcfg, f"after step {step}")
+                got, want = adamw_counts(jstate, port, state.optimizer)
                 for n in got:
                     np.testing.assert_array_equal(got[n].numpy(), want[n],
                                                   err_msg=f"step {step} count {n}")

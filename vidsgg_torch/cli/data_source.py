@@ -9,9 +9,9 @@ gt_annotation), with a :class:`SourceStats` on ``source.stats``:
 * Action Genome, GT boxes (predcls, sgcls): frames through the detector's
   ResNet base, GT ROIAlign and R-CNN head, each video padded to the
   smallest covering size bucket;
-* Action Genome, sgdet: frames through the whole test frontend
-  (:class:`~vidsgg_torch.detector.SgdetFrontend`), padded to a spatial
-  canvas and a frame-count bucket.
+* Action Genome, sgdet: frames through the whole frontend
+  (:class:`~vidsgg_torch.detector.SgdetFrontend`, its test or its train
+  side), padded to a spatial canvas and a frame-count bucket.
 
 Videos that exceed every bucket, or whose detections exceed the entry's
 capacity, are counted as skipped, never dropped silently.
@@ -34,7 +34,7 @@ from vidsgg_torch.device import resolve_device
 
 # what is not ported yet, by ROADMAP.md queue 1 item
 PAIRED_SERVING = "ROADMAP.md queue 1 item 7b (paired and data-parallel serving)"
-SGDET_TRAINING = "ROADMAP.md queue 1 item 5b (sgdet training)"
+PAIRED_TRAINING = "ROADMAP.md queue 1 item 7b (paired sgdet training)"
 
 
 @dataclasses.dataclass
@@ -308,34 +308,42 @@ def make_sgdet_source(
     entry_cap: EntryCapacity,
     frontend,
     is_train: bool = False,
+    shuffle: bool = True,
+    seed: int = 1123,
     max_videos: int | None = None,
     canvases=DEFAULT_CANVASES,
     pair_detect: int = 1,
 ):
     """Full-detection source: raw frames -> SgdetFrontend -> (entry, fmaps,
-    gt), in dataset order.
+    gt).
 
     ``dataset`` provides gt_annotations + load_video_frames (ActionGenome).
     Frames pad spatially to a fixed canvas (``pick_canvas``) and temporally
     to a frame-count bucket capped by the entry's frames; the true (h, w)
     still bounds proposal clipping and ``num_frames`` masks the padding
-    frames' detections. Single-video serving only.
+    frames' detections. ``is_train`` builds the train entries (GT
+    assignment, SUPPLY, GT pairs). With ``shuffle`` each call (epoch) takes
+    the next permutation of a ``RandomState(seed)`` made with the source,
+    as ``vidsgg``'s does; otherwise dataset order. A video over the entry's
+    frames, or whose detections or train plan exceed a capacity, is counted
+    as skipped. Single-video only.
     """
-    if is_train:
-        raise NotImplementedError(f"sgdet training sources are not ported yet: {SGDET_TRAINING}")
     if pair_detect > 1:
-        raise NotImplementedError(f"pair_detect > 1 is not ported yet: {PAIRED_SERVING}")
+        item = PAIRED_TRAINING if is_train else PAIRED_SERVING
+        raise NotImplementedError(f"pair_detect > 1 is not ported yet: {item}")
+    rng = np.random.RandomState(seed)
     stats = SourceStats()
 
     def source():
         stats.reset()
         n = len(dataset) if max_videos is None else min(max_videos, len(dataset))
-        for i in range(n):
+        order = rng.permutation(len(dataset))[:n] if shuffle else np.arange(n)
+        for i in order:
             ann = dataset.gt_annotations[i]
             if len(ann) > entry_cap.max_frames:
                 stats.skipped += 1
                 continue
-            frames, scale = dataset.load_video_frames(i, frontend.device)
+            frames, scale = dataset.load_video_frames(int(i), frontend.device)
             f, h, w, _ = frames.shape
             canvas = _canvas(h, w, canvases)
             fpad = next((b for b in FRAME_BUCKETS if f <= b <= entry_cap.max_frames), f)
@@ -343,8 +351,9 @@ def make_sgdet_source(
             pad[:f, :h, :w] = frames
             try:
                 entry, fmaps = frontend(pad, (float(h), float(w)), scale,
-                                        video_size=(w / scale, h / scale), num_frames=f)
-            except ValueError:  # over-capacity detections
+                                        video_size=(w / scale, h / scale), num_frames=f,
+                                        gt_annotation=ann, is_train=is_train)
+            except ValueError:  # over-capacity detections or train plan
                 stats.skipped += 1
                 continue
             stats.yielded += 1

@@ -89,7 +89,8 @@ def main(argv=None):
             cfg.model_path, tiny=cfg.tiny_detector, frame_size=cfg.frame_size, device=device)
         if cfg.mode == "sgdet":
             frontend = SgdetFrontend(det, SgdetCaps(), cap, device=device)
-            src = data_source.make_sgdet_source(ds, cap, frontend, max_videos=max_videos,
+            src = data_source.make_sgdet_source(ds, cap, frontend, shuffle=False,
+                                                max_videos=max_videos,
                                                 canvases=canvases)
         else:
             src = data_source.make_ag_source(ds, buckets, det, shuffle=False,

@@ -3,14 +3,17 @@ counterpart of ``vidsgg/cli/tempura_train.py``).
 
     python -m vidsgg_torch.cli.tempura_train --mode predcls --data_path AG/
 
-Trains on the Action Genome train split (GT boxes through the frozen
-detector; ``--model_path`` loads a jwyang Faster R-CNN checkpoint) or on
-``--synthetic N`` videos, validating on the test split every epoch, and
-writes the port's checkpoints to ``--save_path``. ``--resume DIR``
-restores ``DIR/best_recall.pt`` (model, optimizer, step, banks) first. It
-runs on the CUDA card, and raises without one; ``--device cpu`` runs on
-the CPU. predcls only: sgcls, sgdet, ``--data_parallel > 1``, ``--int8``
-and ``--profile`` exit naming the ``ROADMAP.md`` item that brings them.
+Trains TEMPURA in predcls, sgcls or sgdet on the Action Genome train
+split (predcls and sgcls: GT boxes through the frozen detector; sgdet: the
+detector's boxes, assigned to the GT, plus SUPPLY rows for the GT boxes it
+missed; ``--model_path`` loads a jwyang Faster R-CNN checkpoint) or on
+``--synthetic N`` GT-box videos in every mode, validating on the test
+split every epoch, and writes the port's checkpoints to ``--save_path``.
+``--resume DIR`` restores ``DIR/best_recall.pt`` (model, optimizer, step,
+banks) first. It runs on the CUDA card, and raises without one;
+``--device cpu`` runs on the CPU. ``--data_parallel > 1``, ``--int8``,
+``--profile`` and sgdet's ``--pair_detect > 1`` exit naming the
+``ROADMAP.md`` item that brings them.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from vidsgg_torch.cli.flags import refuse_unported, take_flag
 from vidsgg_torch.configs.tempura import TempuraRunConfig
 from vidsgg_torch.data.action_genome import ActionGenome
 from vidsgg_torch.data.entry import EntryCapacity
+from vidsgg_torch.detector import SgdetCaps, SgdetFrontend
 from vidsgg_torch.device import resolve_device
 from vidsgg_torch.models import Tempura
 from vidsgg_torch.models.embeddings import word_vectors_available
@@ -35,8 +39,6 @@ from vidsgg_torch.train.checkpoint import restore_checkpoint
 from vidsgg_torch.train.loop import TrainLoopConfig, run_training
 from vidsgg_torch.train.metrics import MetricsWriter
 
-SGCLS = "ROADMAP.md queue 1 item 5a-ii (sgcls training)"
-SGDET = "ROADMAP.md queue 1 item 5b (sgdet training)"
 SURFACE = "ROADMAP.md queue 1 item 7b"
 
 
@@ -51,9 +53,9 @@ def main(argv=None):
         os.environ["VIDSGG_WORD_VECTORS"] = word_vectors
     cfg = TempuraRunConfig.from_args(argv)
     refuse_unported("tempura_train", [
-        (cfg.mode == "sgcls", "--mode sgcls", SGCLS),
-        (cfg.mode == "sgdet", "--mode sgdet", SGDET),
         (cfg.data_parallel > 1, "--data_parallel", f"{SURFACE} (data-parallel training)"),
+        (cfg.mode == "sgdet" and cfg.pair_detect > 1, "--pair_detect",
+         f"{SURFACE} (paired sgdet training)"),
         (cfg.int8, "--int8", f"{SURFACE} (int8)"),
         (profile_dir is not None, "--profile", f"{SURFACE} (profiling)"),
     ])
@@ -90,10 +92,19 @@ def main(argv=None):
                                target_min_side=cfg.frame_size)
         det, canvases = data_source.build_detector(
             cfg.model_path, tiny=cfg.tiny_detector, frame_size=cfg.frame_size, device=device)
-        train_src = data_source.make_ag_source(train_ds, buckets, det, seed=cfg.seed,
-                                               canvases=canvases)
-        val_src = data_source.make_ag_source(test_ds, buckets, det, shuffle=False,
-                                             canvases=canvases)
+        if cfg.mode == "sgdet":
+            # full-detection training: the detector's boxes, GT assignment
+            # and SUPPLY, not the GT-box featurization
+            frontend = SgdetFrontend(det, SgdetCaps(), cap, device=device)
+            train_src = data_source.make_sgdet_source(train_ds, cap, frontend, is_train=True,
+                                                      seed=cfg.seed, canvases=canvases)
+            val_src = data_source.make_sgdet_source(test_ds, cap, frontend, shuffle=False,
+                                                    canvases=canvases)
+        else:
+            train_src = data_source.make_ag_source(train_ds, buckets, det, seed=cfg.seed,
+                                                   canvases=canvases)
+            val_src = data_source.make_ag_source(test_ds, buckets, det, shuffle=False,
+                                                 canvases=canvases)
         steps_per_epoch = len(train_ds)
 
     model_cfg = cfg.model_config()

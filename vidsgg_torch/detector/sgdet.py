@@ -1,25 +1,41 @@
-"""SGDet test frontend: frozen Faster R-CNN -> padded detections -> Entry.
+"""SGDet frontend: frozen Faster R-CNN -> padded detections -> Entry.
 
-Counterpart of the test side of ``vidsgg/detector/sgdet.py``: class-specific
+Counterpart of ``vidsgg/detector/sgdet.py`` (single-video): class-specific
 box decode (stds [0.1, 0.1, 0.2, 0.2]), score threshold 0.1, NMS@0.4 over
 the (frame, class) grid through the hand-written kernel, person kept top-1
-only, the top-D detections per frame, then the on-device pack into an
-``Entry``. The train side waits for a later slice.
+only, the top-D detections per frame.
+
+* test: the on-device pack into an ``Entry``;
+* train: the detections' boxes, scores and masks come to the host in one
+  transfer for the greedy IoU assignment to the GT
+  (:func:`assign_relations`) and the row plan (:meth:`SgdetFrontend.
+  _train_plan`: per frame the detections, then the SUPPLY rows of the GT
+  boxes no detection found, and the pairs of the GT relations); the device
+  then re-pools the SUPPLY boxes (ROIAlign and the R-CNN head) at a fixed
+  capacity, gathers the rows into their slots and pools the pairs' union
+  features (:func:`make_train_pack_fn`). The train entry is built under
+  ``no_grad`` (a train step saves it for backward), the test entry under
+  ``inference_mode``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
+from vidsgg_torch import constants as C
 from vidsgg_torch.data.entry import Entry, EntryCapacity
 from vidsgg_torch.detector.faster_rcnn import FasterRCNN
+from vidsgg_torch.detector.featurize import featurize_pair_entry
 from vidsgg_torch.detector.rpn import top_k
 from vidsgg_torch.device import resolve_device
+from vidsgg_torch.eval.evaluator import np_bbox_overlaps
 from vidsgg_torch.ops.boxes import bbox_transform_inv, clip_boxes
 from vidsgg_torch.ops.nms import batched_class_nms
+from vidsgg_torch.ops.roi_align import roi_align
 
 BBOX_STDS = (0.1, 0.1, 0.2, 0.2)
 SCORE_THRESH = 0.1
@@ -29,6 +45,8 @@ NMS_THRESH = 0.4
 @dataclasses.dataclass(frozen=True)
 class SgdetCaps:
     dets_per_frame: int = 16
+    # the train entry's SUPPLY rows (re-pooled GT boxes) per video
+    supply_cap: int = 64
 
 
 def class_grid(model: FasterRCNN, out: dict, im_hw, im_scale):
@@ -155,8 +173,105 @@ def make_test_entry_fn(model: FasterRCNN, caps: SgdetCaps, entry_cap: EntryCapac
     return test_entry
 
 
+def make_train_pack_fn(model: FasterRCNN, caps: SgdetCaps, entry_cap: EntryCapacity):
+    """(det_feats [F, D, 2048], det_dists [F, D, C-1], base_feat, plan) ->
+    train Entry: the train frontend's device half. The SUPPLY boxes are
+    re-pooled (ROIAlign 7x7 at 1/16, the R-CNN head, the class scores) at
+    ``caps.supply_cap`` rows; their distribution is the foreground slice of
+    the softmax over all classes, renormalised; then every row is gathered
+    into its planned slot and the pairs' union features are pooled."""
+
+    def train_pack(det_feats, det_dists, base_feat, plan: dict) -> Entry:
+        dev = det_feats.device
+        p = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in plan.items()}
+        f, d = det_feats.shape[:2]
+        pooled = roi_align(base_feat, p["supply_rois"], out_size=C.ROI_ALIGN_OUT,
+                           spatial_scale=C.ROI_ALIGN_SCALE)
+        sup_feats = model.head_to_tail(pooled)
+        logits = model.class_scores(sup_feats)
+        sup_fg = torch.softmax(logits, dim=1)[:, 1:]
+        sup_dists = sup_fg / torch.clamp(sup_fg.sum(1, keepdim=True), min=1e-12)
+
+        feats_all = torch.cat([det_feats.reshape(f * d, -1), sup_feats.to(det_feats.dtype)])
+        dists_all = torch.cat([det_dists.reshape(f * d, -1), sup_dists.to(det_dists.dtype)])
+        valid = p["row_valid"]
+        src = p["src"].long()
+        e = dataclasses.replace(
+            Entry.zeros(entry_cap, device=dev),
+            boxes=p["boxes"],
+            labels=p["labels"],
+            scores=p["scores"],
+            distribution=dists_all[src] * valid[:, None],
+            pred_labels=p["labels"],
+            features=feats_all[src] * valid[:, None],
+            obj_mask=valid,
+            im_idx=p["im_idx"],
+            pair_idx=p["pair_idx"],
+            pair_mask=p["pair_mask"],
+            attention_gt=p["attention_gt"],
+            spatial_gt=p["spatial_gt"],
+            contacting_gt=p["contacting_gt"],
+            human_idx=p["human_idx"],
+            frame_mask=p["frame_mask"],
+            im_scale=p["im_scale"],
+            num_frames=p["num_frames"],
+            video_size=p["video_size"],
+        )
+        return featurize_pair_entry(e, base_feat)
+
+    return train_pack
+
+
+def assign_relations(frame_boxes, frame_labels, gt_annotation, iou_thresh=0.5):
+    """Greedy IoU assignment of detections to GT per frame
+    (tools/utils/funcs.py:6-77), as ``vidsgg``'s. Returns per-frame
+    (found_idx, gt_items, supply_items) plus flat assigned labels aligned to
+    the detection list."""
+    found_all, gts_all, supply_all = [], [], []
+    assigned = [np.zeros(len(b), np.int64) for b in frame_boxes]
+    for i, frame_gt in enumerate(gt_annotation):
+        gt_boxes = np.zeros((len(frame_gt), 4))
+        gt_labels = np.zeros(len(frame_gt), np.int64)
+        gt_boxes[0] = np.asarray(frame_gt[0]["person_bbox"]).reshape(-1)[:4]
+        gt_labels[0] = 1
+        for m, n in enumerate(frame_gt[1:]):
+            gt_boxes[m + 1] = n["bbox"]
+            gt_labels[m + 1] = n["class"]
+        pred_boxes = frame_boxes[i]
+        if len(pred_boxes) == 0:
+            found_all.append([])
+            gts_all.append([])
+            supply_all.append(list(frame_gt))
+            continue
+        ious = np_bbox_overlaps(pred_boxes, gt_boxes)
+        best = ious.max(1) > iou_thresh
+        assigned[i][best] = gt_labels[ious.argmax(1)][best]
+
+        found, gts, supply, candidates = [], [], [], []
+        for m, item in enumerate(frame_gt):
+            col = ious[:, m]
+            if (col > iou_thresh).sum() > 0:
+                cand = int(col.argmax())
+                if m > 0 and cand in candidates:
+                    for c in np.argsort(-col):
+                        if int(c) not in candidates:
+                            cand = int(c)
+                            break
+                found.append(cand)
+                gts.append(item)
+                candidates.append(cand)
+                if m > 0:
+                    assigned[i][cand] = item["class"]
+            else:
+                supply.append(item)
+        found_all.append(found)
+        gts_all.append(gts)
+        supply_all.append(supply)
+    return found_all, gts_all, supply_all, assigned
+
+
 class SgdetFrontend:
-    """Video frames -> relation-stage Entry (test side)."""
+    """Video frames -> relation-stage Entry (train or test)."""
 
     def __init__(self, model: FasterRCNN, caps: SgdetCaps,
                  entry_cap: EntryCapacity, device=None):
@@ -166,18 +281,30 @@ class SgdetFrontend:
         self.model = model
         self.caps = caps
         self.entry_cap = entry_cap
+        self.detect = make_detect_fn(model, caps)
         self.test_entry_device = make_test_entry_fn(model, caps, entry_cap)
+        self.train_pack = make_train_pack_fn(model, caps, entry_cap)
 
-    @torch.inference_mode()
     def __call__(self, frames, im_hw, im_scale, video_size=(600.0, 400.0),
-                 num_frames=None):
+                 num_frames=None, *, gt_annotation=None, is_train: bool = False):
         """frames [F, H, W, 3] (BGR mean-subtracted, network scale) ->
         (Entry, base_feat [F, h, w, 1024]). ``num_frames``: true frame count
-        when ``frames`` is padded to a frame-count bucket."""
+        when ``frames`` is padded to a frame-count bucket (detections in
+        padding frames are masked out). ``is_train``: the train entry of
+        ``gt_annotation`` (GT-assigned labels, SUPPLY rows, GT pairs);
+        raises ``ValueError`` when the video exceeds a capacity."""
         frames = torch.as_tensor(frames, device=self.device)
         if num_frames is None:
             num_frames = frames.shape[0]
         im_hw = torch.as_tensor(im_hw, device=self.device)
+        if is_train:
+            with torch.no_grad():
+                return self._train_call(frames, im_hw, im_scale, gt_annotation, video_size,
+                                        num_frames)
+        with torch.inference_mode():
+            return self._test_call(frames, im_hw, im_scale, video_size, num_frames)
+
+    def _test_call(self, frames, im_hw, im_scale, video_size, num_frames):
         entry, base_feat, n = self.test_entry_device(
             frames, im_hw, im_scale, video_size, num_frames)
         # compact regime (capacity < frames * dets): one scalar fetch checks
@@ -189,3 +316,162 @@ class SgdetFrontend:
                 f"{self.entry_cap.max_objs}"
             )
         return entry, base_feat
+
+    def _train_call(self, frames, im_hw, im_scale, gt_annotation, video_size, num_frames):
+        if gt_annotation is None:
+            raise TypeError("the sgdet train entry needs the video's gt_annotation")
+        dets = self.detect(frames, im_hw, im_scale)
+        # only the small arrays come to the host, in one transfer: boxes,
+        # scores and masks; features, distributions and base_feat stay
+        with record_function("vidsgg.train_plan"):
+            b = dets["boxes"]
+            small = torch.cat([b, dets["scores"][..., None].to(b.dtype),
+                               dets["mask"][..., None].to(b.dtype)], dim=-1).cpu().numpy()
+            mask = (small[..., 5] > 0) & (np.arange(frames.shape[0]) < num_frames)[:, None]
+            plan = self._train_plan(small[..., :4], small[..., 4], mask, gt_annotation,
+                                    im_scale, video_size, num_frames)
+        with record_function("vidsgg.train_pack"):
+            entry = self.train_pack(dets["features"], dets["dists"], dets["base_feat"], plan)
+        return entry, dets["base_feat"]
+
+    def _train_plan(self, boxes_h, scores_h, mask, gt_annotation, im_scale, video_size,
+                    num_frames):
+        """Host half of the train frontend (``vidsgg``'s, verbatim): greedy
+        IoU assignment (funcs.py:6-77) and the row layout. Returns the plan
+        consumed by :func:`make_train_pack_fn`: destination slots of the
+        detection and SUPPLY rows, the entry's host-known columns, the
+        padded SUPPLY rois at network scale and the pair tables of the GT
+        relations (object_detector.py:228-253). Raises ``ValueError`` when
+        the objects, the SUPPLY rows or the pairs exceed their capacity."""
+        cap = self.entry_cap
+        fd = mask.size                                # F * D flat det slots
+        f = num_frames
+        m = mask[:f]                                  # [f, D] bool
+        nd = m.sum(1).astype(np.int64)                # detections per frame
+        frame_boxes = [boxes_h[i][m[i]] for i in range(f)]
+        found, gts, supply, assigned = assign_relations(frame_boxes, None, gt_annotation)
+
+        # flat detected rows in frame-major order; src = flat [F*D] index
+        det_src = np.nonzero(mask.reshape(-1))[0]
+        det_boxes = boxes_h[:f][m]
+        det_scores = scores_h[:f][m]
+        det_labels = np.concatenate(assigned) if len(assigned) else np.zeros(0, np.int64)
+
+        # SUPPLY rows (undetected GT, reference :170-227)
+        sup_frame, sup_boxes, sup_cls = [], [], []
+        for i in range(f):
+            for item in supply[i]:
+                bb = (np.asarray(item["person_bbox"]).reshape(-1)[:4]
+                      if "person_bbox" in item else np.asarray(item["bbox"], np.float32))
+                sup_frame.append(i)
+                sup_boxes.append(bb)
+                sup_cls.append(1 if "person_bbox" in item else int(item["class"]))
+            if supply[i]:
+                found[i] = list(found[i]) + list(
+                    range(int(nd[i]), int(nd[i]) + len(supply[i])))
+                gts[i] = list(gts[i]) + list(supply[i])
+        ns = (np.bincount(np.asarray(sup_frame), minlength=f).astype(np.int64)
+              if sup_frame else np.zeros(f, np.int64))
+
+        # final row layout: per frame, detections first then SUPPLY
+        tot = nd + ns
+        off = np.concatenate([[0], np.cumsum(tot)[:-1]])
+        n_rows = int(tot.sum())
+        if n_rows > cap.max_objs:
+            raise ValueError(f"sgdet video exceeds capacity ({n_rows} objs)")
+
+        def ranks(counts):  # 0..c_i-1 within each frame, concatenated
+            reps = np.repeat(np.concatenate([[0], np.cumsum(counts)[:-1]]), counts)
+            return np.arange(int(counts.sum())) - reps
+
+        det_frame = np.repeat(np.arange(f), nd)
+        det_dst = (off[det_frame] + ranks(nd)).astype(np.int64)
+
+        boxes = np.zeros((cap.max_objs, 5), np.float32)
+        labels = np.zeros(cap.max_objs, np.int32)
+        scores = np.zeros(cap.max_objs, np.float32)
+        # src: flat det index (< F*D) or F*D + supply row: the device side
+        # gathers from concat(det rows, SUPPLY rows)
+        src = np.zeros(cap.max_objs, np.int32)
+        boxes[det_dst, 0] = det_frame
+        boxes[det_dst, 1:] = det_boxes
+        labels[det_dst] = det_labels
+        scores[det_dst] = det_scores
+        src[det_dst] = det_src
+
+        rois_pad = np.zeros((self.caps.supply_cap, 5), np.float32)
+        if sup_frame:
+            k = len(sup_frame)
+            if k > self.caps.supply_cap:
+                raise ValueError(
+                    f"sgdet video needs {k} SUPPLY boxes > cap {self.caps.supply_cap}")
+            sup_frame_a = np.asarray(sup_frame, np.int64)
+            sup_boxes_a = np.asarray(sup_boxes, np.float32).reshape(-1, 4)
+            sup_dst = (off[sup_frame_a] + nd[sup_frame_a] + ranks(ns)).astype(np.int64)
+            rois_pad[:k, 0] = sup_frame_a
+            rois_pad[:k, 1:] = sup_boxes_a * im_scale
+            boxes[sup_dst, 0] = sup_frame_a
+            boxes[sup_dst, 1:] = sup_boxes_a
+            labels[sup_dst] = np.asarray(sup_cls, np.int32)
+            scores[sup_dst] = 1.0
+            src[sup_dst] = fd + np.arange(k)
+
+        # pair construction from GT relations (:231-253), per GT item
+        im_idx, pairs, rels = [], [], []
+        for i in range(f):
+            human_local = None
+            for k, item in enumerate(gts[i]):
+                if "person_bbox" in item:
+                    human_local = found[i][k]
+                    break
+            if human_local is None:
+                continue
+            human_global = int(off[i]) + int(human_local)
+            for k, item in enumerate(gts[i]):
+                if "class" in item:
+                    im_idx.append(i)
+                    pairs.append([human_global, int(off[i]) + int(found[i][k])])
+                    rels.append((
+                        np.asarray(item["attention_relationship"]).reshape(-1),
+                        np.asarray(item["spatial_relationship"]).reshape(-1),
+                        np.asarray(item["contacting_relationship"]).reshape(-1),
+                    ))
+
+        p = len(pairs)
+        if p > cap.max_pairs:
+            raise ValueError(f"sgdet video exceeds capacity ({p} pairs)")
+        a_rel = np.zeros((cap.max_pairs,), np.int32)
+        s_rel = np.zeros((cap.max_pairs, C.NUM_SPATIAL), np.float32)
+        c_rel = np.zeros((cap.max_pairs, C.NUM_CONTACTING), np.float32)
+        for j, (a, s, c) in enumerate(rels):
+            a_rel[j] = a[0]
+            s_rel[j, s] = 1.0
+            c_rel[j, c] = 1.0
+        human_idx = np.zeros(cap.max_frames, np.int32)
+        for j, pr in zip(im_idx, pairs):
+            human_idx[j] = pr[0]
+        im_idx_a = np.zeros(cap.max_pairs, np.int32)
+        pair_a = np.zeros((cap.max_pairs, 2), np.int32)
+        if p:
+            im_idx_a[:p] = im_idx
+            pair_a[:p] = pairs
+
+        return {
+            "src": src,
+            "row_valid": np.arange(cap.max_objs) < n_rows,
+            "boxes": boxes,
+            "labels": labels,
+            "scores": scores,
+            "supply_rois": rois_pad,
+            "im_idx": im_idx_a,
+            "pair_idx": pair_a,
+            "pair_mask": np.arange(cap.max_pairs) < p,
+            "attention_gt": a_rel,
+            "spatial_gt": s_rel,
+            "contacting_gt": c_rel,
+            "human_idx": human_idx,
+            "frame_mask": np.arange(cap.max_frames) < f,
+            "im_scale": np.float32(im_scale),
+            "num_frames": np.int32(f),
+            "video_size": np.asarray(video_size, np.float32),
+        }

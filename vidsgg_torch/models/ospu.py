@@ -1,4 +1,4 @@
-"""OSPU: the object classifier (counterpart of ``vidsgg/models/ospu.py``), test phase.
+"""OSPU: the object classifier (counterpart of ``vidsgg/models/ospu.py``).
 
 * object features = roi_feat(2048) ⊕ distribution·GloVe(200) ⊕
   pos_embed(128 of BatchNorm+Linear over center-size boxes);
@@ -7,6 +7,17 @@
   class sequence as its sinusoidal position;
 * optional memory hallucination over the object memory bank;
 * GMM or linear decoder.
+
+The phase is explicit (``phase``, ``unc``, ``deterministic``), as in
+``vidsgg``. Outside the deterministic phase the two batch norms take the
+valid rows' batch statistics and update their running statistics
+(``pos_bn`` at ``vidsgg``'s momentum 0.01 / 10), and dropout at 0.1 acts
+after the position MLP, after the position table is added and inside each
+tracking layer; every mask comes from the ``noise`` argument
+(``noise.py``), in ``vidsgg``'s program order. The train phase's linear
+head returns raw logits over all classes, the GMM head its sampled train
+distribution; ``phase="train", unc=True`` gives the test-phase
+distribution plus ``obj_al_uc``/``obj_ep_uc`` (``vidsgg``'s quirk).
 
 Names follow the reference (``object_classifier.*`` in a TEMPURA
 checkpoint): ``positional_encoder.pe`` (a buffer, carried across, never
@@ -24,11 +35,14 @@ from torch import nn
 
 from vidsgg_torch import constants as C
 from vidsgg_torch.models.gmm_head import GMMHead
+from vidsgg_torch.models.noise import dropout
 from vidsgg_torch.models.norm import MaskedBatchNorm
 from vidsgg_torch.models.promote import dense, matmul
 from vidsgg_torch.models.sttran import EncoderLayer, MemoryHallucinator, _Layers
 
 OBJ_FEAT_DIM = 2048 + 200 + 128  # 2376
+DROPOUT = 0.1
+POS_BN_MOMENTUM = 0.01 / 10.0   # vidsgg/models/ospu.py:150
 
 # the tracking encoder is a torch.nn.TransformerEncoderLayer in the reference
 TorchEncoderLayer = EncoderLayer
@@ -68,8 +82,10 @@ class ObjectClassifier(MemoryHallucinator):
         self.max_pe_len = max_pe_len
         self.use_memory = mem_compute
         self.obj_embed = nn.Embedding(num_classes - 1, 200)
-        self.pos_embed = nn.Sequential(MaskedBatchNorm(4), nn.Linear(4, 128),
-                                       nn.ReLU(), nn.Dropout(0.1))
+        # the Dropout keeps the reference's state_dict layout; it never runs
+        # (the train phase's dropout is noise.py's)
+        self.pos_embed = nn.Sequential(MaskedBatchNorm(4, momentum=POS_BN_MOMENTUM),
+                                       nn.Linear(4, 128), nn.ReLU(), nn.Dropout(DROPOUT))
         if tracking:
             self.positional_encoder = _PositionalEncoder(max_pe_len, OBJ_FEAT_DIM)
             self.encoder_tran = _Layers(
@@ -93,17 +109,26 @@ class ObjectClassifier(MemoryHallucinator):
         cum = torch.cumsum(present, dim=1) - present
         return cum[seq_cls, frame]
 
-    def _intermediate(self, x):
+    def _intermediate(self, x, valid, deterministic):
         fc, bn, relu = self.intermediate
-        return relu(bn(dense(fc, x)))
+        return relu(bn(dense(fc, x), valid, use_running_average=deterministic))
 
-    def forward(self, entry, obj_memory=None, mem_active=False):
-        """Test phase. Returns 'distribution' [N, C-1], 'object_features',
-        'object_mem_features'."""
+    def forward(self, entry, obj_memory=None, mem_active=False, *, phase: str = "test",
+                unc: bool = False, deterministic: bool | None = None, noise=None):
+        """Returns 'distribution' (train: [N, C]; test: [N, C-1]),
+        'object_features', 'object_mem_features', and with ``phase="train",
+        unc=True`` on the GMM head 'obj_al_uc'/'obj_ep_uc'."""
+        if deterministic is None:
+            deterministic = phase != "train"
+
+        def drop(t):
+            return dropout(t, DROPOUT, noise, deterministic)
+
         valid = entry.obj_mask
         obj_embed = matmul(entry.distribution, self.obj_embed.weight)
         bn, fc = self.pos_embed[0], self.pos_embed[1]
-        pos = torch.relu(dense(fc, bn(center_size(entry.boxes[:, 1:]))))
+        csn = bn(center_size(entry.boxes[:, 1:]), valid, use_running_average=deterministic)
+        pos = drop(torch.relu(dense(fc, csn)))
         feats = torch.cat([entry.features, obj_embed, pos], dim=1)
 
         if self.tracking:
@@ -112,18 +137,18 @@ class ObjectClassifier(MemoryHallucinator):
             pos_idx = self._track_positions(seq_cls, frame, valid,
                                             entry.frame_mask.shape[0])
             pe = self.positional_encoder.pe[0]
-            x = feats + pe[torch.clamp(pos_idx, 0, self.max_pe_len - 1).long()]
+            x = drop(feats + pe[torch.clamp(pos_idx, 0, self.max_pe_len - 1).long()])
             same_seq = (seq_cls[:, None] == seq_cls[None, :]) & valid[:, None] & valid[None, :]
             for layer in self.encoder_tran.layers:
-                x = layer(x, same_seq)
+                x = layer(x, same_seq, deterministic, noise)
             obj_features = x * valid[:, None]
             object_features = obj_features
             if self.use_memory:
                 obj_features = self.hallucinate(obj_features, obj_memory, mem_active)
             object_mem_features = obj_features
-            h = self._intermediate(obj_features)
+            h = self._intermediate(obj_features, valid, deterministic)
         else:
-            h = self._intermediate(feats)
+            h = self._intermediate(feats, valid, deterministic)
             object_features = h
             if self.use_memory:
                 h = self.hallucinate(h, obj_memory, mem_active)
@@ -134,8 +159,14 @@ class ObjectClassifier(MemoryHallucinator):
             "object_mem_features": object_mem_features * valid[:, None],
         }
         if self.obj_head == "gmm":
-            dist = self.decoder_lin(h)
+            if phase == "train" and unc:
+                # vidsgg's quirk: test-phase logits for the distribution
+                dist = self.decoder_lin(h, "test")
+                out["obj_al_uc"], out["obj_ep_uc"] = self.decoder_lin(h, "test", unc=True)
+            else:
+                dist = self.decoder_lin(h, phase, noise=noise)
         else:
-            dist = torch.softmax(dense(self.decoder_lin[0], h)[:, 1:], dim=1)
+            logits = dense(self.decoder_lin[0], h)
+            dist = logits if phase == "train" else torch.softmax(logits[:, 1:], dim=1)
         out["distribution"] = dist * valid[:, None]
         return out

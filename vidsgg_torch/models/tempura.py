@@ -13,8 +13,10 @@ uncertainties instead of distributions) and ``deterministic`` (default:
 not the train phase) are arguments of every call, and the train phase
 draws its dropout masks and GMM noise from the ``noise`` argument
 (``noise.py``). Non-deterministic calls use the batch statistics of the
-masked batch norms and update their running statistics. The train phase of
-the OSPU (sgcls, sgdet) is not ported yet.
+masked batch norms and update their running statistics; in sgcls and sgdet
+the train forward runs the OSPU's train phase and then the relation stage
+on the entry as it is (its ``pred_labels``: the GT labels of sgcls, the
+assigned ones of sgdet).
 
 Pair features: subj_fc(2048->512) ⊕ obj_fc(2048->512) ⊕ vr (1x1 conv over
 the union ROI features + a conv stack over the 2x27x27 spatial masks,
@@ -53,9 +55,6 @@ from vidsgg_torch.models.norm import MaskedBatchNorm
 from vidsgg_torch.models.ospu import ObjectClassifier
 from vidsgg_torch.models.promote import conv2d, dense
 from vidsgg_torch.models.sttran import STTran
-
-# what the train phase does not cover yet, by ROADMAP.md queue 1 item
-OSPU_TRAINING = "ROADMAP.md queue 1 item 5a-ii (sgcls training: the OSPU train phase)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,9 +180,12 @@ class Tempura(PairFeatures):
         self.to(dev)
         self.eval()
 
-    def classify_objects(self, entry: Entry, obj_memory=None, mem_active=False) -> dict:
-        """OSPU, test phase."""
-        return self.object_classifier(entry, obj_memory, mem_active)
+    def classify_objects(self, entry: Entry, obj_memory=None, mem_active=False, *,
+                         phase: str = "test", unc: bool = False,
+                         deterministic: bool | None = None, noise=None) -> dict:
+        """OSPU (test phase by default)."""
+        return self.object_classifier(entry, obj_memory, mem_active, phase=phase, unc=unc,
+                                      deterministic=deterministic, noise=noise)
 
     def relation_forward(self, entry: Entry, obj_mem_features=None, rel_memory=None,
                          mem_active=False, *, phase: str = "test", unc: bool = False,
@@ -232,14 +234,14 @@ class Tempura(PairFeatures):
                 mem_active=False, *, phase: str = "test", unc: bool = False,
                 deterministic: bool | None = None, noise=None) -> dict:
         """The full forward: OSPU (none in predcls), then the relation stage
-        on the entry as it is. The predcls train and test step; sgcls and
-        sgdet tests relabel between the two stages instead."""
-        if self.cfg.mode == "predcls":
-            aux = {}
-        elif phase == "train" or deterministic is False:
-            raise NotImplementedError(f"the OSPU's train phase is not ported yet: {OSPU_TRAINING}")
-        else:
-            aux = self.classify_objects(entry, obj_memory, mem_active)
+        on the entry as it is. The train step of every mode and the predcls
+        test step; sgcls and sgdet tests relabel between the two stages
+        instead."""
+        if deterministic is None:
+            deterministic = phase != "train"
+        aux = {} if self.cfg.mode == "predcls" else self.classify_objects(
+            entry, obj_memory, mem_active, phase=phase, unc=unc,
+            deterministic=deterministic, noise=noise)
         out = self.relation_forward(entry, aux.get("object_mem_features"), rel_memory,
                                     mem_active, phase=phase, unc=unc,
                                     deterministic=deterministic, noise=noise)

@@ -24,9 +24,11 @@ weights (no checkpoint ships), 16-frame 608x1008 videos made from a seed.
   (``FasterRCNN(dtype=bfloat16)``, ``bench.py:105-108``) on the same float32
   weights, and ``build_pipeline(..., compute_dtype=torch.bfloat16)`` the
   relation stack of ``tempura_test --bf16`` (``vidsgg/cli/tempura_test.py:132``).
-* training: :func:`train_steps_card_vs_cpu`, two float64 predcls train
-  steps (the second with filled banks) of a one-layer TEMPURA on a device
-  and on the CPU with the same recorded noise.
+* training: :func:`train_steps_card_vs_cpu`, two float64 predcls or sgcls
+  train steps (the second with filled banks) of a one-layer TEMPURA on a
+  device and on the CPU with the same recorded noise; sgdet training's
+  annotations and capacity (:func:`sgdet_train_annotation`,
+  :data:`SGDET_TRAIN_CAP`).
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from vidsgg_torch.train import (
     make_train_step,
 )
 from vidsgg_torch.train.eval_pipeline import cast_floating
+from vidsgg_torch.train.state import obj_memory_dim
 
 FRAMES, H, W = 16, 608, 1008
 DETS = 16
@@ -69,6 +72,13 @@ GT_IMAGE_WH = (480, 270)
 GT_IM_SCALE = 1000.0 / 480.0
 GT_CAP = EntryCapacity(FRAMES, FRAMES * (1 + GT_OBJS_PER_FRAME), 48)
 GT_LABEL_BIAS = 4.0
+
+# sgdet training: SgdetCaps(16, 64) on the serving frames, and an entry
+# capacity that admits every video: 16 detections a frame and every SUPPLY
+# row (vidsgg's EntryCapacity(16, 256, 48) does not: 256 detection rows
+# fill it before any SUPPLY)
+SUPPLY_CAP = 64
+SGDET_TRAIN_CAP = EntryCapacity(FRAMES, FRAMES * DETS + SUPPLY_CAP, FRAMES * GT_OBJS_PER_FRAME)
 
 # TEAT-GT's clip capacities: the test CLI's for its synthetic source (GT-box
 # videos), and for an Action Genome bucket of 16 frames (sgdet)
@@ -181,14 +191,25 @@ def gt_video(seed: int, mode: str, device, cap: EntryCapacity = GT_CAP,
     return ann, entry
 
 
+def sgdet_train_annotation(seed: int, num_frames: int = FRAMES):
+    """A synthetic annotation of 1 person + 3 objects a frame over the
+    serving frames (608x1008 at image scale 1)."""
+    return synthetic_video_annotation(num_frames=num_frames, objs_per_frame=GT_OBJS_PER_FRAME,
+                                      image_wh=(W, H), seed=seed)
+
+
 def _train_two_steps(model, entry, noises) -> dict:
     """Step, ``unc`` fold, bank finalize, step: the metrics of both steps,
     the banks, and every parameter and buffer afterwards."""
+    cfg = model.cfg
     state = create_train_state(model, steps_per_epoch=1)
-    step = make_train_step(LossFlags(mode="predcls", use_ctl_loss=True))
+    step = make_train_step(LossFlags(mode=cfg.mode, use_ctl_loss=True,
+                                     obj_con_loss=None if cfg.mode == "predcls" else "euc_con"))
     out = {"step 0": step(state, entry, noises[0])}
-    acc = MemoryAccumulator.zeros(dtype=torch.float64, device=entry.device)
-    acc = accumulate_memory(acc, entry, eval_step(state, entry, unc=True))
+    acc = MemoryAccumulator.zeros(obj_dim=obj_memory_dim(cfg), dtype=torch.float64,
+                                  device=entry.device)
+    acc = accumulate_memory(acc, entry, eval_step(state, entry, unc=True),
+                            obj_mem=cfg.obj_mem_compute)
     state = state.with_memory(*finalize_memory(acc))
     out["step 1"] = step(state, entry, noises[1])
     out["banks"] = {"rel_memory": state.rel_memory, "obj_memory": state.obj_memory}
@@ -196,14 +217,19 @@ def _train_two_steps(model, entry, noises) -> dict:
     return out
 
 
-def train_steps_card_vs_cpu(device, seed: int = 0) -> float:
-    """Two float64 predcls train steps of a one-layer TEMPURA (d = 1936) on
-    a synthetic video, on ``device`` and on the CPU, the CPU's dropout masks
-    and GMM noise replayed on ``device``. Returns the largest difference of
-    any loss, gradient norm, bank, parameter or batch-norm statistic,
-    relative to max(1, max|CPU's|) of its tensor."""
+def train_steps_card_vs_cpu(device, seed: int = 0, mode: str = "predcls") -> float:
+    """Two float64 train steps of a one-layer TEMPURA (d = 1936) on a
+    synthetic video, on ``device`` and on the CPU, the CPU's dropout masks
+    and GMM noise replayed on ``device``: predcls, or sgcls with the OSPU
+    (one tracking layer, the object memory) and its losses. Returns the
+    largest difference of any loss, gradient norm, bank, parameter or
+    batch-norm statistic, relative to max(1, max|CPU's|) of its tensor."""
     cap = EntryCapacity(6, 18, 12)   # the synthetic video: 6 frames of 3 boxes
-    cfg = TempuraConfig(mode="predcls", enc_layers=1, dec_layers=1)
+    if mode == "predcls":
+        cfg = TempuraConfig(mode="predcls", enc_layers=1, dec_layers=1)
+    else:
+        cfg = TempuraConfig.for_mode(mode, enc_layers=1, dec_layers=1, track_layers=1,
+                                     obj_mem_compute=True)
     model = Tempura(cfg, device="cpu", generator=torch.Generator().manual_seed(seed)).double()
     card_model = copy.deepcopy(model).to(device)
     entry = next(iter(make_synthetic_source(1, cap, seed=seed, shuffle=False, stable=True,

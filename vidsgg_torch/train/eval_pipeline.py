@@ -7,9 +7,11 @@
   pair rebuild -> union refeaturize -> relation forward.
 * sgdet (fused): OSPU classify -> on-device clean_class + grouped NMS +
   relabel + pair rebuild on the expanded object axis -> union refeaturize
-  -> relation forward. When it reports overflow (clean_class growth past
-  the expanded axis, or a frame with more pairs than
-  ``union_pairs_per_frame``), the exact host path runs instead.
+  (ungrouped, ``vidsgg``'s default; per-frame grouped pooling with
+  ``union_pairs_per_frame``, as the test CLIs ask for) -> relation
+  forward. When it reports overflow (clean_class growth past the expanded
+  axis, or a frame with more pairs than ``union_pairs_per_frame``), the
+  exact host path runs instead.
 * the host path (sgcls with ``device_postprocess=False``, sgdet on
   overflow): OSPU classify -> NumPy postprocess -> repacked Entry -> union
   ROIAlign -> relation forward.
@@ -38,7 +40,11 @@ import torch
 from torch.profiler import record_function
 
 from vidsgg_torch.data.entry import Entry, EntryCapacity
-from vidsgg_torch.detector.featurize import featurize_pair_entry, pair_union_features_grouped
+from vidsgg_torch.detector.featurize import (
+    featurize_pair_entry,
+    pair_union_features,
+    pair_union_features_grouped,
+)
 from vidsgg_torch.device import resolve_device
 from vidsgg_torch.eval.adapter import to_eval_pred
 from vidsgg_torch.models.postprocess import ObjectsView, sgcls_postprocess, sgdet_postprocess
@@ -103,10 +109,12 @@ def _sgcls_fused(state: ServingState, entry: Entry, fmaps, needs_union: bool):
     return entry2, out
 
 
-def _sgdet_fused(state: ServingState, entry: Entry, fmaps, union_ppf: int,
+def _sgdet_fused(state: ServingState, entry: Entry, fmaps, union_ppf: int | None,
                  needs_union: bool):
     """The whole sgdet test step on the device. Returns (entry2, out,
-    overflow); the caller re-runs the exact host path on overflow."""
+    overflow); the caller re-runs the exact host path on overflow.
+    ``union_ppf``: the per-frame pair bound of grouped union pooling, or
+    None for ungrouped pooling (no union overflow)."""
     with record_function("vidsgg.classify"):
         aux = _classify_stage(state, entry)
     with record_function("vidsgg.postprocess"):
@@ -114,11 +122,14 @@ def _sgdet_fused(state: ServingState, entry: Entry, fmaps, union_ppf: int,
             entry, aux["distribution"], aux["object_mem_features"])
     if needs_union:
         with record_function("vidsgg.union_features"):
-            union_feat, _, spatial_masks, u_ovf = pair_union_features_grouped(
-                entry2, fmaps, union_ppf)
+            if union_ppf is None:
+                union_feat, _, spatial_masks = pair_union_features(entry2, fmaps)
+            else:
+                union_feat, _, spatial_masks, u_ovf = pair_union_features_grouped(
+                    entry2, fmaps, union_ppf)
+                overflow = overflow | u_ovf
         entry2 = dataclasses.replace(entry2, union_feat=union_feat,
                                      spatial_masks=spatial_masks)
-        overflow = overflow | u_ovf
     with record_function("vidsgg.relation_forward"):
         out = state.model.relation_forward(
             entry2, mem2, rel_memory=state.rel_memory, mem_active=state.mem_active)
@@ -176,10 +187,10 @@ class EvalPipeline:
     needs_union: bool = True
     # sgcls and sgdet relabel on the device; False takes the host path
     device_postprocess: bool = True
-    # per-frame pair bound of sgdet's grouped union pooling; the sgdet
-    # postprocess doubles the object axis, so 2 * dets_per_frame covers
-    # every frame
-    union_pairs_per_frame: int = 32
+    # per-frame pair bound of sgdet's grouped union pooling (None:
+    # ungrouped, vidsgg's default); the sgdet postprocess doubles the object
+    # axis, so 2 * dets_per_frame covers every frame
+    union_pairs_per_frame: int | None = None
     device: object = None
     # e.g. torch.bfloat16: vidsgg's serving-precision mode
     compute_dtype: torch.dtype | None = None

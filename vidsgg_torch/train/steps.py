@@ -2,16 +2,18 @@
 ``vidsgg/train/steps.py``).
 
 Loss set (TEMPURA_train.py:190-218): attention CE + spatial/contacting
-BCE, plus the relation contrastive ('ctl') losses at 0.2x spatial and
-contact under ``--use_ctl_loss``. The object losses of sgcls/sgdet and the
-TEAT-GT terms are not ported yet and raise, naming their ROADMAP items.
+BCE; for sgcls/sgdet the object CE (class 0 weighted by ``eos_coef``) and,
+under ``obj_con_loss``, the object contrastive loss at ``lambda_con``; the
+relation contrastive ('ctl') losses at 0.2x spatial and contact under
+``--use_ctl_loss``. The TEAT-GT terms are not ported yet and raise, naming
+their ROADMAP item.
 
 :func:`make_train_step` gives one step of ``vidsgg``'s: the train-phase
 forward (dropout and GMM noise from the run's noise source, batch
 statistics, running statistics updated), the loss sum, backward, the clip
 and the reference AdamW (:class:`~vidsgg_torch.train.optim.ReferenceAdamW`),
-returning ``vidsgg``'s metrics dict as 0-d device tensors: no host
-transfer. It refuses to run under ``torch.inference_mode``.
+returning ``vidsgg``'s metrics dict (its keys sorted, as JAX returns it)
+as 0-d device tensors: no host transfer. It refuses to run under ``torch.inference_mode``.
 """
 
 from __future__ import annotations
@@ -22,7 +24,6 @@ import torch
 
 from vidsgg_torch.data.entry import Entry
 from vidsgg_torch.losses import contrastive_loss, masked_bce, masked_ce
-from vidsgg_torch.models.tempura import OSPU_TRAINING
 
 TEATGT_TRAINING = "ROADMAP.md queue 1 item 6b (TEAT-GT training)"
 
@@ -43,18 +44,24 @@ class LossFlags:
 
 
 def assemble_losses(out: dict, entry: Entry, flags: LossFlags) -> dict:
-    if flags.mode in ("sgcls", "sgdet"):
-        raise NotImplementedError(f"the object losses are not ported yet: {OSPU_TRAINING}")
     if flags.use_cons_str_loss or flags.use_cons_sem_loss or flags.ctl_variant != "tempura":
         raise NotImplementedError(f"the TEAT-GT loss terms are not ported yet: {TEATGT_TRAINING}")
     pm = entry.pair_mask
-    losses = {
-        "attention_relation_loss": masked_ce(out["attention_distribution"],
-                                             entry.attention_gt, pm),
-        "spatial_relation_loss": masked_bce(out["spatial_distribution"], entry.spatial_gt, pm),
-        "contacting_relation_loss": masked_bce(out["contacting_distribution"],
-                                               entry.contacting_gt, pm),
-    }
+    losses = {}
+    if flags.mode in ("sgcls", "sgdet"):
+        dist = out["distribution"]
+        w = torch.ones(flags.num_classes, dtype=dist.dtype, device=dist.device)
+        w[0] = flags.eos_coef
+        losses["object_loss"] = masked_ce(dist, entry.labels, entry.obj_mask, w)
+        if flags.obj_con_loss:
+            losses["object_contrastive_loss"] = flags.lambda_con * contrastive_loss(
+                out["object_mem_features"], entry.labels, entry.obj_mask)
+    losses["attention_relation_loss"] = masked_ce(out["attention_distribution"],
+                                                  entry.attention_gt, pm)
+    losses["spatial_relation_loss"] = masked_bce(out["spatial_distribution"],
+                                                 entry.spatial_gt, pm)
+    losses["contacting_relation_loss"] = masked_bce(out["contacting_distribution"],
+                                                    entry.contacting_gt, pm)
     if flags.use_ctl_loss:
         losses["spatial_con_loss"] = 0.2 * contrastive_loss(
             out["spatial_distribution"], torch.argmax(entry.spatial_gt, 1), pm)
@@ -86,7 +93,9 @@ def make_train_step(flags: LossFlags):
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total_loss"] = total.detach()
         metrics["grad_norm"] = grad_norm
-        return metrics
+        # vidsgg's jitted step returns its dict in JAX's pytree order (sorted
+        # keys), the order of its log lines
+        return dict(sorted(metrics.items()))
 
     return train_step
 
