@@ -106,22 +106,34 @@ evaluator, and fails (nonzero exit, no result line) on any fault:
     trees with train splits, ``--resume`` and ``tempura_test --ckpt``
     (``train_cli_phase``: the checkpoint files against the states bit for
     bit, each mode's directory deleted after);
-12. TEAT-GT predcls training at the published widths (12 layers x 32
-    heads, d = 768) with both consistency losses and the ctl losses
-    (``teatgt_train_phase``): the regularizer's share of a step (with and
-    without it, and the ``vidsgg.consistency`` range in a profile), 2
-    epochs over the four GT-box videos of 5. through ``run_training`` (the
-    train step, AdamW against its bound, validation; finite losses, moved
-    parameters, no NMS launch; float64 train steps and the regularizer's
-    losses on the card equal to the CPU's within 1e-8 with the same draws
-    and decompositions), then ``teatgt_train`` over an AG-format tree,
-    ``--resume`` and ``teatgt_test --ckpt`` (the files against the states
-    bit for bit, the directory deleted after);
-13. a ``kernels`` JSON line (K1 and K2, launches per main path: TEMPURA's
+12. TEAT-GT training at the published widths with both consistency
+    losses and the ctl losses (``teatgt_train_phase``), in predcls (12
+    layers x 32 heads, d = 768; 2 epochs over the four GT-box videos of
+    5.), sgcls (6 x 16 with the tracking OSPU and the object loss; 1 epoch
+    over the same videos with their class distributions) and sgdet (1
+    epoch over the four videos of sgdet training through the train
+    frontend, TEAT-GT's clip caps counting the tokens they drop): the
+    regularizer's share of a step (with and without it, and the
+    ``vidsgg.consistency`` range in a profile), ``run_training`` (the train
+    step, AdamW against its bound, validation, sgdet's detect + plan +
+    pack; finite losses, moved parameters, the OSPU's all, NMS launches:
+    none in predcls and sgcls, in sgdet 2 per train and 3 per validation
+    video, every call bit-equal to the plain version; float64 train steps
+    and the regularizer's losses on the card equal to the CPU's within
+    1e-8 with the same draws and decompositions), then ``teatgt_train``
+    in the mode over an AG-format tree, ``--resume`` and ``teatgt_test
+    --ckpt`` (the files against the states bit for bit, sgdet's launches
+    counted, the directory deleted after);
+13. TokenGT's random node identifiers and the Performer
+    (``node_id_phase``): ``teatgt_test --rand_node_id`` and
+    ``--orf_node_id`` over an AG-format test split, a small float64
+    TEAT-GT of each configuration served on the card against the CPU, and
+    one timed train step of each at the published predcls widths;
+14. a ``kernels`` JSON line (K1 and K2, launches per main path: TEMPURA's
     and TEAT-GT's sgdet videos, in float32 and in bfloat16, TEMPURA
-    predcls and sgcls training's 0, sgdet training's, TEAT-GT predcls
-    training's 0; K1's calls with the bfloat16 grouped call), then the
-    result line.
+    predcls and sgcls training's 0, sgdet training's, TEAT-GT predcls and
+    sgcls training's 0, TEAT-GT sgdet training's; K1's calls with the
+    bfloat16 grouped call), then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -1125,12 +1137,14 @@ def serve_teatgt_phase(det, mode: str, sgdet_frames=None):
     return dict(videos=rows, peak_memory_bytes=peak, mean=mean, eigh=eig), preds, anns
 
 
-def reference_teatgt(mode: str, det, sgdet_video=None):
+def reference_teatgt(mode: str, det, sgdet_video=None, **model_kw):
     """A small float64 TEAT-GT (d 32, 2 layers, 4 heads; the OSPU at full
-    width) served in ``mode`` on the CPU (plain versions) and on the card,
-    the CPU's eigendecompositions injected into the card's run: every
-    discrete output equal, identical grids. GT modes: an 8-frame GT-box
-    video of 3 objects a frame; sgdet: the reference phase's video."""
+    width; ``model_kw``: random node identifiers or the Performer, whose
+    test-time draws are the same on both devices) served in ``mode`` on the
+    CPU (plain versions) and on the card, the CPU's eigendecompositions
+    injected into the card's run: every discrete output equal, identical
+    grids. GT modes: an 8-frame GT-box video of 3 objects a frame; sgdet:
+    the reference phase's video."""
     from vidsgg_torch.data.entry import EntryCapacity
     from vidsgg_torch.detector import GtFrontend, SgdetCaps, SgdetFrontend
     from vidsgg_torch.models import TeatGT, TeatGTConfig
@@ -1139,7 +1153,7 @@ def reference_teatgt(mode: str, det, sgdet_video=None):
 
     cfg = TeatGTConfig.for_mode(mode, encoder_layers=2, encoder_attention_heads=4,
                                 encoder_embed_dim=32, encoder_ffn_embed_dim=48,
-                                caps=ClipCaps(5, 2, 24, 96, 8))
+                                caps=ClipCaps(5, 2, 24, 96, 8), **model_kw)
     rel = TeatGT(cfg, device="cpu", generator=torch.Generator().manual_seed(9)).double()
     if mode == "sgdet":
         frames, (f, h, w, dets) = sgdet_video
@@ -1168,12 +1182,13 @@ def reference_teatgt(mode: str, det, sgdet_video=None):
     if recorded:
         raise AssertionError(f"TEAT-GT {mode} reference: {len(recorded)} decompositions unused")
     b, a = preds
-    worst = agree(a, b, f"teatgt {mode} reference")
+    worst = agree(a, b, f"teatgt {mode} {model_kw} reference")
     scores = same_grids(mode, ann, a, b)
-    log(f"[reference] small float64 TEAT-GT {mode} video, the CPU's eigenvectors in the "
-        f"card's run: card == CPU on every discrete output ({len(b['pred_labels'])} objects, "
-        f"{len(b['pair_idx'])} pairs), identical grids (with R@20 "
+    log(f"[reference] small float64 TEAT-GT {mode} {model_kw} video, the CPU's eigenvectors "
+        f"in the card's run: card == CPU on every discrete output ({len(b['pred_labels'])} "
+        f"objects, {len(b['pair_idx'])} pairs), identical grids (with R@20 "
         f"{scores['with']['R@20']:.4f}); max float difference {worst:.3e}")
+    return worst
 
 
 # the CLI phase: an Action Genome-format test split on disk, served through
@@ -1856,7 +1871,7 @@ def train_phase(det, mode: str = "predcls"):
         t0 = time.perf_counter()
         state = tloop.run_training(state, flags, cfg, lambda: iter(videos),
                                    lambda: iter(videos), GT_CAP, writer,
-                                   Noise.seeded(1, det.device), model_cfg=model.cfg)
+                                   Noise.seeded(1, det.device))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         writer.close()
@@ -1964,7 +1979,7 @@ def sgdet_train_phase(det):
         NMS_KERNEL.reset_counts()
         t0 = time.perf_counter()
         state = tloop.run_training(state, flags, cfg, train_data, val_data, SGDET_TRAIN_CAP,
-                                   writer, Noise.seeded(1, det.device), model_cfg=model.cfg)
+                                   writer, Noise.seeded(1, det.device))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         writer.close()
@@ -2185,9 +2200,10 @@ def consistency_share(model, flags, videos, device) -> dict:
 
     from vidsgg_torch.models.noise import Noise
     from vidsgg_torch.train import create_train_state, make_train_step
+    from vidsgg_torch.train.state import TEATGT_OBJ_DIM
 
     def steps(m, f, n, trace=None):
-        state = create_train_state(m, steps_per_epoch=len(videos))
+        state = create_train_state(m, obj_dim=TEATGT_OBJ_DIM, steps_per_epoch=len(videos))
         step, noise, ms = make_train_step(f), Noise.seeded(5, device), []
         for i in range(n):
             if trace is not None and i == 1:        # after the warm-up step
@@ -2249,57 +2265,111 @@ def regularizer_gradients(model, flags, entry, noise) -> dict:
     return norms
 
 
-def teatgt_train_phase(det):
-    """TEAT-GT predcls training at the published widths
-    (``serving_setup.build_teatgt_train``; float32, TF32 off) through
-    ``run_training`` with the memory off, as ``teatgt_train`` runs it:
-    2 epochs over the four GT-box videos of ``serve_gt_phase``, validated
-    on them. The GT-box entries keep ``vidsgg``'s video size 1, whose
-    0.71 px threshold leaves every frame graph without edges (the
-    structural loss is then 0 up to rounding), so here they get the
-    videos' frame size and the frame graphs have edges. The train step,
-    AdamW (against its bytes bound) and validation timed between
-    synchronizes, the run's peak memory; finite losses, every parameter
-    moved but those no loss reaches (``TEATGT_UNMOVED``), a non-zero
-    gradient in both of the regularizer's encoders, no NMS launch; the
-    regularizer's share of a step (:func:`consistency_share`); two float64
-    train steps on the card against the CPU's within 1e-8 (the same draws,
-    the CPU's decompositions; every loss, the regularizer's nonzero ones
-    among them). Then ``teatgt_train`` as a user runs it
+def teatgt_train_phase(det, mode: str = "predcls"):
+    """TEAT-GT training of ``mode`` at the published widths
+    (``serving_setup.build_teatgt_train``: predcls 12 layers x 32 heads,
+    sgcls and sgdet 6 x 16 with the tracking OSPU; both consistency
+    losses and the ctl losses, in sgcls and sgdet the object loss; float32,
+    TF32 off) through ``run_training`` with the memory off and the
+    [36, 1024] object bank, as ``teatgt_train`` runs it, validated on the
+    same videos: predcls 2 epochs and sgcls 1 over the four GT-box videos
+    of ``serve_gt_phase`` (sgcls with their class distributions), given
+    their 480x270 frame size (the GT-box entries keep ``vidsgg``'s video
+    size 1, whose 0.71 px threshold leaves every frame graph without
+    edges); sgdet 1 epoch over the four videos of ``sgdet_train_phase``
+    through the train frontend on the calibrated detector (``SgdetCaps(16,
+    64)``, ``EntryCapacity(16, 320, 48)``, TEAT-GT's Action Genome clip
+    caps, whose token drops are counted), validated through the test
+    frontend. The train step, AdamW (against its bytes bound), validation
+    and sgdet's detect + plan + pack timed between synchronizes, the run's
+    peak memory; finite losses, every parameter moved but those no loss
+    reaches (``TEATGT_UNMOVED``; the OSPU's all move), a non-zero gradient
+    in both of the regularizer's encoders; no NMS launch in predcls and
+    sgcls, in sgdet 2 per train video and 3 per validation video, every
+    call bit-equal to the plain version; the regularizer's share of a step
+    (:func:`consistency_share`); two float64 train steps on the card
+    against the CPU's within 1e-8 (the same draws, the CPU's
+    decompositions; every loss, the regularizer's nonzero ones among
+    them). Then ``teatgt_train`` as a user runs it
     (:func:`teatgt_train_cli_phase`)."""
+    from vidsgg_torch.detector import SgdetCaps, SgdetFrontend
     from vidsgg_torch.models.noise import Noise
     from vidsgg_torch.ops.nms import NMS_KERNEL
     from vidsgg_torch.serving_setup import (
+        DETS,
         GT_CAP,
+        SGDET_TRAIN_CAP,
+        SUPPLY_CAP,
+        sgdet_train_annotation,
         teatgt_train_steps_card_vs_cpu,
     )
     from vidsgg_torch.train import create_train_state
     from vidsgg_torch.train import loop as tloop
     from vidsgg_torch.train.metrics import MetricsWriter
+    from vidsgg_torch.train.state import TEATGT_OBJ_DIM
 
-    tag = "[teatgt train]"
+    tag = "[teatgt train]" if mode == "predcls" else f"[teatgt train {mode}]"
+    epochs = TRAIN_EPOCHS if mode == "predcls" else 1
     t0 = time.perf_counter()
-    model, flags = build_teatgt_train(det.device)
-    front = GtFrontend(det)
-    videos = []
-    for seed in GT_SEEDS:
-        ann, skeleton = gt_video(seed, "predcls", det.device)
-        entry, fmaps = front(make_frames(seed, FRAMES, H, W, det.device), skeleton)
-        entry = dataclasses.replace(entry, video_size=torch.tensor(
-            GT_IMAGE_WH, dtype=entry.video_size.dtype, device=det.device))
-        videos.append((entry, fmaps, ann))
+    model, flags = build_teatgt_train(det.device, mode)
+    caps = model.cfg.caps
+    videos, drops = [], []
+    if mode == "sgdet":
+        front = SgdetFrontend(det, SgdetCaps(DETS, SUPPLY_CAP), SGDET_TRAIN_CAP,
+                              device=det.device)
+        raw = [(make_frames(seed, FRAMES, H, W, det.device), sgdet_train_annotation(seed))
+               for seed in SGDET_TRAIN_SEEDS]
+        cap, hw, size = SGDET_TRAIN_CAP, (float(H), float(W)), (float(W), float(H))
+    else:
+        front, cap = GtFrontend(det), GT_CAP
+        for seed in GT_SEEDS:
+            ann, skeleton = gt_video(seed, mode, det.device)
+            entry, fmaps = front(make_frames(seed, FRAMES, H, W, det.device), skeleton)
+            entry = dataclasses.replace(entry, video_size=torch.tensor(
+                GT_IMAGE_WH, dtype=entry.video_size.dtype, device=det.device))
+            videos.append((entry, fmaps, ann))
+    state = create_train_state(model, obj_dim=TEATGT_OBJ_DIM, steps_per_epoch=4)
+    times = TrainTimes(state, ())
+    if mode == "sgdet":
+        for k in ("detect_plan_pack", "detect_test"):
+            times.times[k], times.peaks[k] = [], []
+        train_entry = times.stage("detect_plan_pack", front)
+        test_entry = times.stage("detect_test", front)
+
+        def train_data():
+            for frames, ann in raw:
+                entry, fmaps = train_entry(frames, hw, 1.0, video_size=size,
+                                           gt_annotation=ann, is_train=True)
+                im_idx = entry.im_idx[entry.pair_mask].cpu().numpy()
+                drops.append(token_drops({"im_idx": im_idx}, caps))
+                yield entry, fmaps, ann
+
+        def val_data():
+            for frames, ann in raw:
+                entry, fmaps = test_entry(frames, hw, 1.0, video_size=size)
+                yield entry, fmaps, ann
+
+        # the regularizer's share is measured on the train entries
+        NMS_KERNEL.reset_counts()
+        videos = list(train_data())
+        drops.clear()
+    else:
+        def train_data():
+            return iter(videos)
+        val_data = train_data
     torch.cuda.synchronize()
     log(f"{tag} TEAT-GT {model.cfg}, {sum(p.numel() for p in model.parameters())} "
-        f"parameters, and {len(videos)} featurized videos ready in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"parameters, and {len(videos)} videos ready in {time.perf_counter() - t0:.1f} s")
     share = consistency_share(model, flags, videos, det.device)
     log(f"{tag} the regularizer's share of a step: " + json.dumps(share))
+    first_entry = videos[0][0]
+    if mode == "sgdet":
+        del videos
 
-    state = create_train_state(model, steps_per_epoch=len(videos))
-    times = TrainTimes(state, ())
-    cfg = tloop.TrainLoopConfig(mode="predcls", nepoch=TRAIN_EPOCHS, log_iter=len(videos),
-                                mem_enabled=False)
+    cfg = tloop.TrainLoopConfig(mode=mode, nepoch=epochs, log_iter=4, mem_enabled=False)
+    calls = []
     with tempfile.TemporaryDirectory(prefix="teatgt_train_log_") as logdir, times.active(), \
+            recording_nms_calls(calls) if mode == "sgdet" else contextlib.nullcontext(), \
             contextlib.redirect_stdout(io.StringIO()) as out:
         writer = MetricsWriter(logdir)
         torch.cuda.synchronize()
@@ -2307,81 +2377,101 @@ def teatgt_train_phase(det):
         before = torch.cuda.memory_allocated()
         NMS_KERNEL.reset_counts()
         t0 = time.perf_counter()
-        state = tloop.run_training(state, flags, cfg, lambda: iter(videos), lambda: iter(videos),
-                                   GT_CAP, writer, Noise.seeded(3, det.device))
+        state = tloop.run_training(state, flags, cfg, train_data, val_data, cap, writer,
+                                   Noise.seeded(3, det.device))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         writer.close()
-    peak = max(p for ps in times.peaks.values() for p in ps)
-    launches = NMS_KERNEL.launches
+    peaks = {k: max(v) for k, v in times.peaks.items() if v}
+    peak = max(peaks.values())
+    launches, launches_by = NMS_KERNEL.launches, dict(NMS_KERNEL.launches_by)
     for line in out.getvalue().splitlines():
         log(f"{tag} {line}")
-    checked = times.check(state, tag, len(videos))
-    if launches != 0 or set(checked["unmoved"]) - TEATGT_UNMOVED:
-        raise AssertionError(f"{tag} {launches} NMS kernel launches (want 0); unmoved "
-                             f"parameters {checked['unmoved']}")
-    grad_norms = regularizer_gradients(state.model, flags, videos[0][0],
+    checked = times.check(state, tag, 4)
+    want = 2 * 4 * epochs + 3 * 4 * epochs if mode == "sgdet" else 0
+    if launches != want or len(calls) != want:
+        raise AssertionError(f"{tag} {launches} NMS launches ({len(calls)} recorded), want "
+                             f"{want}")
+    shapes = check_recorded_nms(calls, f"teatgt {mode}", "training") if calls else []
+    del calls
+    ospu_unmoved = [k for k in checked["unmoved"] if k.startswith("object_classifier.")]
+    if set(checked["unmoved"]) - TEATGT_UNMOVED or ospu_unmoved:
+        raise AssertionError(f"{tag} unmoved parameters {checked['unmoved']}")
+    grad_norms = regularizer_gradients(state.model, flags, first_entry,
                                        Noise.seeded(4, det.device))
     if not all(np.isfinite(v) and v > 0 for v in grad_norms.values()):
         raise AssertionError(f"{tag} the regularizer's gradient norms {grad_norms}")
+    stages = {k: spread(v) for k, v in times.times.items() if v}
+    adamw, adamw_share = adamw_bound(model), times.adamw_share()
+    del model, state, times
+    torch.cuda.empty_cache()
     # the regularizer's losses are among the compared step metrics
-    err, cons_losses = teatgt_train_steps_card_vs_cpu(det.device)
+    err, cons_losses = teatgt_train_steps_card_vs_cpu(det.device, mode=mode)
     if err > TRAIN_CARD_CPU_TOL or not all(v > 0 for v in cons_losses.values()):
         raise AssertionError(f"{tag} float64 card vs CPU: train steps {err}, the CPU's "
                              f"consistency losses {cons_losses}")
     result = dict(
-        videos=len(videos), epochs=TRAIN_EPOCHS, wall_s=wall,
-        ms_per_video=1e3 * wall / (TRAIN_EPOCHS * len(videos)),
-        stages_ms={k: spread(v) for k, v in times.times.items() if v},
-        peak_memory_bytes=peak, before_run_bytes=before, nms_launches=launches,
-        adamw=adamw_bound(model), consistency=share, regularizer_grad_norms=grad_norms,
-        adamw_share_of_step=times.adamw_share(),
+        videos=4, epochs=epochs, wall_s=wall, ms_per_video=1e3 * wall / (epochs * 4),
+        stages_ms=stages, stage_peak_bytes=peaks, peak_memory_bytes=peak,
+        before_run_bytes=before, nms_launches=launches, nms_launches_by=launches_by,
+        nms_calls_bit_equal=len(shapes), adamw=adamw, consistency=share,
+        regularizer_grad_norms=grad_norms, adamw_share_of_step=adamw_share,
         float64_card_vs_cpu_max_rel_err=err, consistency_reference_losses=cons_losses,
         **checked)
-    log(f"{tag} {TRAIN_EPOCHS} epochs x {len(videos)} videos in {wall:.2f} s "
+    if mode == "sgdet":
+        result["token_drops"] = [dict(dropped=d, tokens=t) for d, t in drops]
+    validation = result["stages_ms"].get("validation")
+    log(f"{tag} {epochs} epochs x 4 videos in {wall:.2f} s "
         f"({result['ms_per_video']:.1f} ms per trained video, validation and the stage "
         f"synchronizes included), peak {peak} bytes ({peak / 2**30:.2f} GiB; {before} before "
-        f"the run), NMS launches {launches}, {checked['moved_parameters']} of "
-        f"{checked['parameters']} parameters moved, the regularizer's gradient norms "
-        f"{grad_norms}; float64 card vs CPU: train steps max rel "
-        f"err {err:.3g} (tolerance {TRAIN_CARD_CPU_TOL}; the CPU's consistency losses "
-        f"{cons_losses})")
+        f"the run), NMS launches {launches} ({launches_by}"
+        + (f", every call bit-equal to plain {len(shapes)}" if shapes else "") + "), "
+        f"{checked['moved_parameters']} of {checked['parameters']} parameters moved, the "
+        f"regularizer's gradient norms {grad_norms}; validation ms per video "
+        f"{json.dumps(validation)}; float64 card vs CPU: train steps max rel err {err:.3g} "
+        f"(tolerance {TRAIN_CARD_CPU_TOL}; the CPU's consistency losses {cons_losses})")
+    if mode == "sgdet":
+        log(f"{tag} tokens dropped by the clip caps {caps} per train video "
+            f"(dropped, tokens): {drops}")
     for k, v in result["stages_ms"].items():
-        log(f"{tag}   {k} ms: " + json.dumps(v))
+        log(f"{tag}   {k} ms: " + json.dumps(v) + f", peak {peaks.get(k, 0) / 2**30:.2f} GiB")
     log(f"{tag}   AdamW bound: " + json.dumps(result["adamw"]) + f"; AdamW "
         f"{result['adamw_share_of_step']:.3f} of a step (medians)")
-    del model, state, videos, times
     torch.cuda.empty_cache()
-    result["cli"] = teatgt_train_cli_phase(det)
+    result["cli"] = teatgt_train_cli_phase(det, mode)
     return result
 
 
-def teatgt_train_cli_phase(det):
-    """``teatgt_train --mode predcls`` with both consistency losses and
+def teatgt_train_cli_phase(det, mode: str = "predcls"):
+    """``teatgt_train --mode <mode>`` with both consistency losses and
     ``--use_ctl_loss`` at the default widths, as a user runs it: an
-    AG-format tree with a train split (two 16-frame videos) and a test
-    split (two), the calibrated detector as a jwyang ``.pth``, one epoch,
-    checkpoints on disk; every metric of its step lines finite, the
-    regularizer's losses among them. Then ``--resume`` (the state must equal the
-    file's bit for bit; ``checkpoint_final`` copied to ``best_recall``
-    where the run saved none) and ``teatgt_test --ckpt ... --ckpt_name
-    checkpoint_final`` with the same model flags (the served model must
-    equal the file's, which must equal the train run's final state). No
-    NMS launch. The directory is deleted after."""
+    AG-format tree with a train split (two videos) and a test split (two),
+    16 frames (sgdet 12, as ``train_cli_phase``), the calibrated detector
+    as a jwyang ``.pth``, one epoch, checkpoints on disk; every metric of
+    its step lines finite, the regularizer's losses among them (and in
+    sgcls and sgdet the object loss). Then ``--resume`` (the state must
+    equal the file's bit for bit; ``checkpoint_final`` copied to
+    ``best_recall`` where the run saved none) and ``teatgt_test --ckpt ...
+    --ckpt_name checkpoint_final`` with the same model flags (the served
+    model must equal the file's, which must equal the train run's final
+    state). NMS launches: none in predcls and sgcls; in sgdet 2 per train
+    video (the CLI's probe of its first video included) and 3 per
+    validation and test video. The directory is deleted after."""
     import shutil
 
     from vidsgg_torch.cli import teatgt_test
     from vidsgg_torch.ops.nms import NMS_KERNEL
     from vidsgg_torch.train.checkpoint import checkpoint_file, load_payload
 
-    tag = "[teatgt train cli]"
-    with tempfile.TemporaryDirectory(prefix="ag_teatgt_train_") as tmp:
+    tag = "[teatgt train cli]" if mode == "predcls" else f"[teatgt train cli {mode}]"
+    detect = mode == "sgdet"
+    with tempfile.TemporaryDirectory(prefix=f"ag_teatgt_train_{mode}_") as tmp:
         root = os.path.join(tmp, "ag")
-        write_ag_split(root, TRAIN_CLI_VIDEOS["predcls"])
+        write_ag_split(root, TRAIN_CLI_VIDEOS[mode])
         pth = os.path.join(tmp, "faster_rcnn_ag.pth")
         torch.save({"model": det.state_dict()}, pth)
         save = os.path.join(tmp, "checkpoints")
-        common = ["--mode", "predcls", "--data_path", root, "--model_path", pth,
+        common = ["--mode", mode, "--data_path", root, "--model_path", pth,
                   "--frame_size", str(CLI_FRAME_SIZE)] + TEATGT_TRAIN_ARGS
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2390,23 +2480,31 @@ def teatgt_train_cli_phase(det):
         state, text, seconds = run_train_cli(common + ["--nepoch", "1", "--log_iter", "1",
                                                        "--save_path", save], "teatgt_train")
         peak = torch.cuda.max_memory_allocated()
+        launches, launches_by = {"train": NMS_KERNEL.launches}, dict(NMS_KERNEL.launches_by)
         per_video = [float(x) for x in
                      re.findall(r"^epoch 0 step \d+  ([0-9.]+)s/video", text, re.M)]
-        if len(per_video) != 2 or NMS_KERNEL.launches != 0 or "skipped=0" not in text:
+        want = {"train": 2 * 3 + 3 * 2 if detect else 0}
+        skipped = re.search(r"skipped=[1-9]|\[sgdet_source\] skipped", text)
+        if len(per_video) != 2 or launches != want or skipped:
             raise AssertionError(f"{tag} {len(per_video)} step lines, NMS launches "
-                                 f"{NMS_KERNEL.launches}: {text[-800:]}")
-        # the CLI's own inputs (video size 1): every logged metric finite,
-        # the regularizer's and the ctl losses among them
+                                 f"{launches} (want {want}): {text[-800:]}")
+        # every logged metric finite, the regularizer's and the ctl losses
+        # among them
         step_metrics = [dict((k, float(v)) for k, v in re.findall(r"(\w+)=(\S+)", line))
                         for line in re.findall(r"^epoch 0 step \d+ .*$", text, re.M)]
-        want = {"structure_temp_loss", "semantic_temp_loss", "attention_con_loss"}
-        if not all(want <= m.keys() and all(np.isfinite(v) for v in m.values())
+        wanted = {"structure_temp_loss", "semantic_temp_loss", "attention_con_loss"}
+        if mode != "predcls":
+            wanted.add("object_loss")
+        if not all(wanted <= m.keys() and all(np.isfinite(v) for v in m.values())
                    for m in step_metrics):
             raise AssertionError(f"{tag} step metrics {step_metrics}")
+        if tuple(state.obj_memory.shape) != (36, 1024):
+            raise AssertionError(f"{tag} object bank {tuple(state.obj_memory.shape)}")
         files = sorted(os.listdir(save))
         sizes = {f: os.path.getsize(os.path.join(save, f)) for f in files}
         log(f"{tag} teatgt_train: {seconds:.1f} s, s/video per step line {per_video}, "
-            f"peak {peak} bytes ({(peak - before) / 2**30:.2f} GiB its own), files {sizes}")
+            f"NMS launches {launches['train']}, peak {peak} bytes "
+            f"({(peak - before) / 2**30:.2f} GiB its own), files {sizes}")
         for line in text.splitlines():
             if line.startswith(("epoch", "new best", ">>>")):
                 log(f"{tag}   {line}")
@@ -2421,9 +2519,11 @@ def teatgt_train_cli_phase(det):
             shutil.copyfile(checkpoint_file(save, "checkpoint_final"),
                             checkpoint_file(save, "best_recall"))
             resume_from = "checkpoint_final"
+        NMS_KERNEL.reset_counts()
         resumed, text2, seconds2 = run_train_cli(common + [
             "--nepoch", "0", "--resume", save, "--save_path", os.path.join(tmp, "resumed")],
             "teatgt_train")
+        launches["resume"] = NMS_KERNEL.launches       # the probe of the first video
         best = load_payload(save, "best_recall", det.device)
         same_state(resumed.model, {k: getattr(resumed, k) for k in banks}, best,
                    f"{tag} --resume against {resume_from}", resumed.optimizer, resumed.step)
@@ -2438,30 +2538,120 @@ def teatgt_train_cli_phase(det):
             served["state"] = restore(s, payload)
             return served["state"]
 
+        NMS_KERNEL.reset_counts()
         with patched(teatgt_test, restore_serving=keep):
             evs, _, n, seconds3 = run_cli(common + ["--ckpt", save, "--ckpt_name",
                                                     "checkpoint_final"], cli="teatgt_test")
+        launches["test"] = NMS_KERNEL.launches
         s = served["state"]
         same_state(s.model, {k: getattr(s, k) for k in banks}, final,
                    f"{tag} teatgt_test --ckpt against checkpoint_final")
         bad = {f"{ev.constraint} {m}@{k}": f(k) for ev in evs for k in ev.KS
                for m, f in (("R", ev.recall_at), ("mR", ev.mean_recall_at))
                if not (np.isfinite(f(k)) and 0 <= f(k) <= 1)}
-        if n != 2 or bad or NMS_KERNEL.launches != 0:
+        want.update(resume=2 if detect else 0, test=3 * n if detect else 0)
+        if n != 2 or bad or launches != want:
             raise AssertionError(f"{tag} teatgt_test --ckpt: {n} videos, NMS launches "
-                                 f"{NMS_KERNEL.launches}, R/mR outside [0, 1]: {bad}")
+                                 f"{launches} (want {want}), R/mR outside [0, 1]: {bad}")
         del served, s, final
         shutil.rmtree(save)
         result = dict(train_seconds=seconds, s_per_video_lines=per_video,
-                      nms_launches=NMS_KERNEL.launches, own_peak_bytes=peak - before,
-                      checkpoint_bytes=sizes, resumed_from=resume_from,
-                      resume_seconds=seconds2, test_seconds=seconds3,
+                      nms_launches=launches["train"], nms_launches_by=launches_by,
+                      nms_launches_by_run=launches,
+                      own_peak_bytes=peak - before, checkpoint_bytes=sizes,
+                      resumed_from=resume_from, resume_seconds=seconds2,
+                      test_seconds=seconds3,
                       test_r20={ev.constraint: ev.recall_at(20) for ev in evs})
         log(f"{tag} --resume equal to {resume_from} bit for bit ({seconds2:.1f} s); "
             f"teatgt_test --ckpt served checkpoint_final, equal to it and to the train run's "
-            f"state bit for bit ({seconds3:.1f} s); checkpoint directory deleted")
+            f"state bit for bit ({seconds3:.1f} s); NMS launches {launches}; checkpoint "
+            f"directory deleted")
     torch.cuda.empty_cache()
     log(f"{tag} " + json.dumps(result))
+    return result
+
+
+# TokenGT's other node identifiers and attention: (name, train CLI flags,
+# model options)
+NODE_ID_CONFIGS = (("rand", ["--rand_node_id"], {}), ("orf", ["--orf_node_id"], {}),
+                   ("performer", [], {"performer": True}))
+
+
+def node_id_phase(det):
+    """TokenGT's random node identifiers (``rand``, ``orf``) and the
+    Performer on the card: ``teatgt_test --mode predcls --rand_node_id``
+    and ``--orf_node_id`` as a user runs them over an AG-format test split
+    (two 16-frame videos; default widths; no NMS launch, R/mR in [0, 1]);
+    a small float64 TEAT-GT predcls of each configuration served on the
+    card against the CPU with the same test-time draws
+    (:func:`reference_teatgt`); and one train step of each at the
+    published predcls widths (``build_teatgt_train`` with the consistency
+    and ctl losses) on a GT-box video, timed between synchronizes (a
+    warm-up step first): finite losses, moved parameters."""
+    from vidsgg_torch.detector import FasterRCNN, RPNConfig
+    from vidsgg_torch.models.noise import Noise
+    from vidsgg_torch.ops.nms import NMS_KERNEL
+    from vidsgg_torch.train import create_train_state, make_train_step
+    from vidsgg_torch.train.state import TEATGT_OBJ_DIM
+
+    tag = "[node ids]"
+    result = {"test_cli": {}, "float64_card_vs_cpu": {}, "train_step": {}}
+    with tempfile.TemporaryDirectory(prefix="ag_node_ids_") as tmp:
+        root = os.path.join(tmp, "ag")
+        write_ag_split(root, TRAIN_CLI_VIDEOS["predcls"])
+        pth = os.path.join(tmp, "faster_rcnn_ag.pth")
+        torch.save({"model": det.state_dict()}, pth)
+        common = ["--mode", "predcls", "--data_path", root, "--model_path", pth,
+                  "--frame_size", str(CLI_FRAME_SIZE)]
+        for name, flags, _ in NODE_ID_CONFIGS[:2]:
+            NMS_KERNEL.reset_counts()
+            evs, _, n, seconds = run_cli(common + flags, cli="teatgt_test")
+            bad = {f"{ev.constraint} {m}@{k}": f(k) for ev in evs for k in ev.KS
+                   for m, f in (("R", ev.recall_at), ("mR", ev.mean_recall_at))
+                   if not (np.isfinite(f(k)) and 0 <= f(k) <= 1)}
+            if n != 2 or bad or NMS_KERNEL.launches:
+                raise AssertionError(f"{tag} teatgt_test {flags}: {n} videos, NMS launches "
+                                     f"{NMS_KERNEL.launches}, R/mR outside [0, 1]: {bad}")
+            result["test_cli"][name] = dict(videos=n, seconds=seconds,
+                                            r20={ev.constraint: ev.recall_at(20)
+                                                 for ev in evs})
+            log(f"{tag} teatgt_test {' '.join(flags)}: {n} videos in {seconds:.2f} s, R@20 "
+                f"{result['test_cli'][name]['r20']}")
+    # the float64 references' small detector (predcls reads its base and head)
+    small = FasterRCNN(rpn_cfg=RPNConfig(pre_nms_top_n=600, post_nms_top_n=16),
+                       base_blocks=(1, 1, 1), head_blocks=1, device="cpu",
+                       generator=torch.Generator().manual_seed(7)).double()
+    for name, _, kw in NODE_ID_CONFIGS:
+        model_kw = kw or {"node_id_mode": name}
+        result["float64_card_vs_cpu"][name] = reference_teatgt("predcls", small, **model_kw)
+
+    front = GtFrontend(det)
+    ann, skeleton = gt_video(GT_SEEDS[0], "predcls", det.device)
+    entry, _ = front(make_frames(GT_SEEDS[0], FRAMES, H, W, det.device), skeleton)
+    entry = dataclasses.replace(entry, video_size=torch.tensor(
+        GT_IMAGE_WH, dtype=entry.video_size.dtype, device=det.device))
+    for name, flags, kw in NODE_ID_CONFIGS:
+        model, loss_flags = build_teatgt_train(det.device, "predcls", flags, **kw)
+        state = create_train_state(model, obj_dim=TEATGT_OBJ_DIM, steps_per_epoch=1)
+        before = {k: p.detach().clone() for k, p in model.named_parameters()}
+        step, noise, ms = make_train_step(loss_flags), Noise.seeded(6, det.device), []
+        metrics = [synced(step, ms)(state, entry, noise) for _ in range(2)]
+        host = torch.stack([torch.stack(list(m.values())) for m in metrics]).cpu()
+        moved = sum(not torch.equal(p, before[k]) for k, p in model.named_parameters())
+        if not bool(torch.isfinite(host).all()) or moved < 0.9 * len(before):
+            raise AssertionError(f"{tag} {name} train steps: losses {host.tolist()}, "
+                                 f"{moved} of {len(before)} parameters moved")
+        cfg = model.cfg
+        result["train_step"][name] = dict(
+            warm_up_ms=ms[0], step_ms=ms[1], moved_parameters=moved, parameters=len(before),
+            node_id_mode=cfg.node_id_mode, performer=cfg.performer,
+            losses=dict(zip(metrics[1], host[1].tolist())))
+        log(f"{tag} {name}: TEAT-GT predcls {cfg.encoder_layers} x "
+            f"{cfg.encoder_attention_heads}, node ids {cfg.node_id_mode}, performer "
+            f"{cfg.performer}: train step {ms[1]:.1f} ms (warm-up {ms[0]:.1f}), {moved} of "
+            f"{len(before)} parameters moved, total loss {float(host[1, -1]):.4f}")
+        del model, state
+        torch.cuda.empty_cache()
     return result
 
 
@@ -2532,8 +2722,12 @@ def main() -> int:
     lap("train sgdet")
     train_cli = train_cli_phase(det)
     lap("train CLI")
-    teatgt_train = teatgt_train_phase(det)
-    lap("teatgt train and its CLI")
+    teatgt_train = {mode: teatgt_train_phase(det, mode) for mode in ("predcls", "sgcls")}
+    lap("teatgt train predcls, sgcls and their CLI")
+    teatgt_train["sgdet"] = teatgt_train_phase(det, "sgdet")
+    lap("teatgt train sgdet and its CLI")
+    node_ids = node_id_phase(det)
+    lap("node ids and performer")
     # launches on the main paths: TEMPURA's and TEAT-GT's sgdet videos, in
     # float32 and in bfloat16
     paths = {"tempura sgdet": rows, "teatgt sgdet": teatgt_runs["sgdet"]["videos"]}
@@ -2550,10 +2744,18 @@ def main() -> int:
         launches[f"tempura {mode} train"] = ranked_launches[f"tempura {mode} train"] = \
             train[mode]["nms_launches"]
     launches["tempura sgdet train"] = train["sgdet"]["nms_launches"]
-    # TEAT-GT predcls training reaches no NMS either
-    launches["teatgt predcls train"] = ranked_launches["teatgt predcls train"] = \
-        teatgt_train["nms_launches"] + teatgt_train["cli"]["nms_launches"]
+    # TEAT-GT predcls and sgcls training reach no NMS either; its sgdet
+    # training launches as TEMPURA's does (the CLI's run: 2 per train video
+    # with its probe, 3 per validation video)
+    for mode in ("predcls", "sgcls"):
+        launches[f"teatgt {mode} train"] = ranked_launches[f"teatgt {mode} train"] = \
+            teatgt_train[mode]["nms_launches"] + teatgt_train[mode]["cli"]["nms_launches"]
+    launches["teatgt sgdet train"] = (teatgt_train["sgdet"]["nms_launches"]
+                                      + teatgt_train["sgdet"]["cli"]["nms_launches"])
     ranked_launches["tempura sgdet train"] = train["sgdet"]["nms_launches_by"].get("ranked", 0)
+    ranked_launches["teatgt sgdet train"] = sum(
+        run["nms_launches_by"].get("ranked", 0)
+        for run in (teatgt_train["sgdet"], teatgt_train["sgdet"]["cli"]))
 
     def entry(name, replaces, call_names, launched, err, more_calls=()):
         sel = [timings[c] for c in call_names]
@@ -2597,7 +2799,9 @@ def main() -> int:
     for mode, run in train.items():
         log(f"[train {mode}] " + json.dumps(run))
     log("[train cli] " + json.dumps(train_cli))
-    log("[teatgt train] " + json.dumps(teatgt_train))
+    for mode, run in teatgt_train.items():
+        log(f"[teatgt train {mode}] " + json.dumps(run))
+    log("[node ids] " + json.dumps(node_ids))
     log("[phases] wall seconds: " + json.dumps(seconds))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

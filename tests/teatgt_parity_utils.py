@@ -15,6 +15,11 @@ regularizer's per-frame graphs). (Decomposing the
 adjacency again outside ``vidsgg``'s jit is not the same: XLA fuses the
 Laplacian's products differently there, and one ulp rotates the basis of
 a repeated eigenvalue.)
+
+:class:`DrawBridge` does the same for TokenGT's orthogonal random
+matrices (the ``orf`` node identifiers, the Performer's projections):
+``vidsgg`` draws them from threefry keys, whose values no torch generator
+reproduces, so the port is handed ``vidsgg``'s.
 """
 
 from __future__ import annotations
@@ -24,12 +29,15 @@ import functools
 import jax
 import numpy as np
 import torch
+from train_parity_utils import exact_callback
 
 import vidsgg.models.teatgt as jteatgt
+import vidsgg.models.tokengt as jtokengt
 import vidsgg.train.eval_pipeline as jep
 from vidsgg.train import steps as jsteps
 from vidsgg_torch.convert import regularizer_from_jax
 import vidsgg_torch.models.teatgt as tteatgt
+import vidsgg_torch.models.tokengt as ttokengt
 
 
 class EigBridge:
@@ -157,3 +165,64 @@ class RoundingNoiseBridge:
             return base()
 
         optimizer.global_grad_norm = global_grad_norm
+
+
+class DrawBridge:
+    """Every orthogonal random matrix ``vidsgg``'s TokenGT draws
+    (``gaussian_orthogonal_random_matrix``: the ``orf`` node identifiers,
+    then each Performer layer's projection), recorded in its call order
+    inside its jit (an ordered callback) and handed to the port's TokenGT
+    in the same order, each of the shape it asks for. ``noise``: a
+    :class:`~train_parity_utils.SharedNoise` that must not record the
+    normals of these draws (they are handed over whole)."""
+
+    def __init__(self, monkeypatch, noise=None):
+        self.recorded = []
+        self.calls = 0
+        original = jtokengt.gaussian_orthogonal_random_matrix
+
+        def record(m):
+            self.recorded.append(np.array(m))
+
+        def recording(rng, nb_rows, nb_cols, batch=1):
+            active = noise is not None and noise.active
+            if active:
+                noise.active = False
+            try:
+                out = original(rng, nb_rows, nb_cols, batch)
+            finally:
+                if active:
+                    noise.active = True
+            exact_callback(record, out, ordered=True)
+            return out
+
+        monkeypatch.setattr(jtokengt, "gaussian_orthogonal_random_matrix", recording)
+        monkeypatch.setattr(ttokengt, "gaussian_orthogonal_random_matrix", self.port_draw)
+
+    def port_draw(self, noise, nb_rows, nb_cols, batch=1, *, dtype, device):
+        jax.effects_barrier()
+        assert self.recorded, f"no recorded draw left for {(batch, nb_rows, nb_cols)}"
+        want = self.recorded.pop(0)
+        assert want.shape == (batch, nb_rows, nb_cols), (want.shape, (batch, nb_rows, nb_cols))
+        self.calls += 1
+        return torch.from_numpy(want).to(device=device, dtype=dtype)
+
+    def assert_consumed(self, calls: int):
+        jax.effects_barrier()
+        assert self.calls == calls and not self.recorded, (self.calls, calls,
+                                                           len(self.recorded))
+
+
+class JaxFixedDraws:
+    """``vidsgg``'s test-time draws of the ``rand`` node identifiers, for
+    the port's ``fixed_noise``: ``jax.random.uniform`` from
+    ``jax.random.PRNGKey(0)`` in the asked type (float64 stands for
+    ``vidsgg`` under x64), as ``vidsgg`` draws them at every call (its
+    orthogonal random matrices come through :class:`DrawBridge`)."""
+
+    def uniform(self, shape, dtype, device):
+        wide = dtype == torch.float64
+        with jax.enable_x64(wide):
+            u = np.asarray(jax.random.uniform(jax.random.PRNGKey(0), tuple(shape),
+                                              np.float64 if wide else np.float32))
+        return torch.from_numpy(u).to(device=device, dtype=dtype)

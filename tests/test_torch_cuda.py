@@ -16,8 +16,10 @@ CPU (eigenvalues and the projector of each eigenvalue cluster), and a
 predcls video served in float32 on the card against float64 on the CPU
 with the CPU's eigenvectors injected. Then training: float64 predcls and
 sgcls train steps on the card against the CPU's, TEAT-GT's float64 train
-steps and its consistency losses likewise, and the sgdet train frontend's
-entry and its two kernel launches.
+steps (predcls, and sgcls and sgdet with the OSPU) and its consistency
+losses likewise, TokenGT's random node identifiers and Performer in
+float64 on the card against the CPU, and the sgdet train frontend's entry
+and its two kernel launches.
 Skipped where there is no CUDA card.
 
 This file imports neither JAX nor ``vidsgg``, so it also runs on a machine
@@ -450,6 +452,67 @@ def test_teatgt_float64_train_steps_on_the_card_match_cpu(cuda_device):
 
     err, losses = teatgt_train_steps_card_vs_cpu(cuda_device)
     assert err <= 1e-8 and all(v > 0 for v in losses.values()), (err, losses)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sgcls", "sgdet"])
+def test_teatgt_object_modes_float64_train_steps_on_the_card_match_cpu(cuda_device, mode):
+    """Two TEAT-GT sgcls or sgdet train steps (2 layers at the published
+    width with the tracking OSPU at its 2376, one tracking layer; the
+    train CLI's losses:
+    the object loss, the ctl and both consistency losses) in float64 on the
+    card and on the CPU, the CPU's draws replayed (the OSPU's masks first)
+    and its decompositions injected on the card: every loss, gradient
+    norm, parameter and batch-norm statistic within 1e-8 x max(1,
+    max|CPU's|)."""
+    from vidsgg_torch.serving_setup import teatgt_train_steps_card_vs_cpu
+
+    err, losses = teatgt_train_steps_card_vs_cpu(cuda_device, mode=mode)
+    assert err <= 1e-8 and all(v > 0 for v in losses.values()), (err, losses)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(node_id_mode="rand"), dict(node_id_mode="orf"),
+                                dict(performer=True)])
+def test_random_node_ids_and_performer_on_the_card_match_cpu(cuda_device, kw):
+    """TokenGT (d = 32, 2 layers x 4 heads) with ``rand`` or ``orf`` node
+    identifiers or the Performer, in float64 on the card and on the CPU:
+    the test phase's fixed draws (a CPU generator: the same values on both;
+    the orthogonal matrices' QR on each device) and a train-phase forward
+    and backward on the CPU's recorded draws and the train step's
+    Performer draws (``performer_noise``): outputs and every parameter's
+    gradient within 1e-8 x max(1, max|CPU's|)."""
+    import copy
+
+    from vidsgg_torch.models.noise import Noise, RecordingNoise
+    from vidsgg_torch.models.tokengt import TokenGTEncoder
+    from vidsgg_torch.train.steps import performer_noise
+
+    rng = np.random.RandomState(3)
+    b, n, e = 3, 9, 20
+    node_mask = rng.rand(b, n) > 0.2
+    edge_mask = rng.rand(b, e) > 0.3
+    inputs = [rng.randn(b, n, 1168) * node_mask[..., None], node_mask,
+              rng.randint(0, 5, (b, n)) * node_mask,
+              rng.randint(0, n, (b, e, 2)) * edge_mask[..., None],
+              rng.randint(0, 2, (b, e)) * edge_mask, edge_mask,
+              np.linalg.qr(rng.randn(b, n, n))[0] * node_mask[..., None]]
+    model = TokenGTEncoder(embed_dim=32, layers=2, heads=4, ffn_dim=48, lap_node_id_k=6,
+                           performer_nb_features=16, **kw).double()
+    card_model = copy.deepcopy(model).to(cuda_device)
+    recorded = RecordingNoise(Noise.seeded(4, "cpu"))
+    outs = []
+    for dev, m in (("cpu", model), (cuda_device, card_model)):
+        args = [torch.from_numpy(np.asarray(x)).to(dev) for x in inputs]
+        with torch.no_grad():
+            test = m(*args)
+        draws = recorded.replay() if outs else recorded
+        train = m(*args, deterministic=False, noise=draws, performer=performer_noise(0, 1000))
+        sum((t * (i + 1)).sum() for i, t in enumerate(train)).backward()
+        outs.append([t.detach().cpu() for t in (*test, *train)]
+                    + [p.grad.cpu() for p in m.parameters()])
+    for i, (g, w) in enumerate(zip(outs[1], outs[0], strict=True)):
+        assert float((g - w).abs().max()) <= 1e-8 * max(1.0, float(w.abs().max())), i
 
 
 @pytest.mark.cuda

@@ -17,6 +17,8 @@ carried across by ``convert.py``, in float64 on both sides. Tolerances:
 * two sgdet train steps on ``vidsgg``'s entries in float64, the port on
   ``vidsgg``'s dropout masks and GMM noise: losses, ``grad_norm`` and every
   parameter at 1e-8;
+* two TEAT-GT sgdet train steps on ``vidsgg``'s entries, as
+  ``test_torch_teatgt_train_modes.py`` holds sgcls's;
 * the train source (``make_sgdet_source(is_train=True)``) over three
   epochs: the order of the videos and the skip count equal to ``vidsgg``'s
   (a video over the entry's frames, and one whose plan raises).
@@ -29,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_teatgt_train_modes import SGDET_CLIPS, float64_entry, lock_step
 from test_torch_train_sgcls import _models
 from torch_parity_utils import entry_to_torch, random_tree
 from train_parity_utils import SharedNoise, close, compare_state
@@ -233,6 +236,15 @@ def test_two_sgdet_train_steps_match_vidsgg(train_entries, monkeypatch):
             for k in jm:
                 close(tm[k], jm[k], f"step {step} {k}")
             compare_state(jstate, port, tcfg, f"after step {step}")
+
+
+def test_two_steps_of_teatgt_sgdet_training_match_vidsgg(train_entries, monkeypatch):
+    """TEAT-GT sgdet training on these train entries against ``vidsgg``'s:
+    ``test_torch_teatgt_train_modes.py:lock_step``."""
+    entries = [float64_entry(jax.device_get(je)) for je, _, _, _ in train_entries[:2]]
+    assert all(int(np.asarray(e.obj_mask).sum()) > 3 for e in entries)
+    lock_step(monkeypatch, "sgdet", entries, JCap(*CAP), SGDET_CLIPS, seed=12,
+              consistency=False)
 
 
 class _Dataset:

@@ -24,7 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from teatgt_parity_utils import EigBridge
+from teatgt_parity_utils import DrawBridge, EigBridge, JaxFixedDraws
 from torch_parity_utils import assert_trees_equal, entry_to_torch, random_tree, to_np
 from train_parity_utils import SharedNoise
 
@@ -44,6 +44,7 @@ from vidsgg.models.teatgt import TeatGT as JTeatGT
 from vidsgg.models.teatgt import TeatGTConfig as JConfig
 from vidsgg.models.tokengt import TokenGTEncoder as JTokenGT
 from vidsgg.ops import masked_laplacian_eig as jax_eig
+import vidsgg_torch.models.tokengt as ttokengt
 from vidsgg_torch.convert import regularizer_from_jax, teatgt_from_jax
 from vidsgg_torch.models import graph_build as tgb
 from vidsgg_torch.models.graph_transformer import GlobalAttentionPooling, GraphTransformer
@@ -632,6 +633,41 @@ def test_regularizer_carry_is_one_to_one():
 
 @pytest.mark.parametrize("kw", [dict(node_id_mode="rand"), dict(node_id_mode="orf"),
                                 dict(performer=True)])
-def test_random_draws_are_refused(kw):
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        TeatGT(TeatGTConfig.for_mode("predcls", **TINY, **kw), device="cpu")
+def test_random_draw_configs_serve_as_vidsgg(kw, monkeypatch):
+    """TEAT-GT with random node identifiers or the Performer (predcls, test
+    phase) against ``vidsgg``'s on its draws (``PRNGKey(0)`` at test time:
+    ``rand``'s uniform identifiers through ``JaxFixedDraws``, the orthogonal
+    random matrices through ``DrawBridge``) and decompositions; the
+    identifier encoder carries the reference's name (``rand_encoder``,
+    ``orf_encoder``). The port's state dict passes ``vidsgg``'s strict
+    converter and its audit (which writes every layer's projections under
+    ``MultiheadAttention_0``, where a Performer layer's live under
+    ``MultiheadPerformerAttention_0``: renamed for the audit)."""
+    jcfg, tcfg = _configs("predcls", performer_nb_features=16, **kw)
+    shapes = expected_teatgt_shapes(jcfg, JEntry.zeros(CAP))
+    port = TeatGT(tcfg, device="cpu")
+    sd = {k: v.numpy() for k, v in port.state_dict().items()}
+    converted = convert_teatgt_state_dict(sd, jcfg, strict=True)
+    if tcfg.performer:
+        for i in range(tcfg.encoder_layers):
+            layer = converted["params"]["tokengt"][f"layer_{i}"]
+            layer["MultiheadPerformerAttention_0"] = layer.pop("MultiheadAttention_0")
+    validate_converted_teatgt(converted, shapes)
+    encoder = port.TokenGT_encoder.graph_encoder.graph_feature.id_encoder_name
+    assert encoder == f"{tcfg.node_id_mode}_encoder"
+
+    variables = random_tree(shapes, np.random.default_rng(14), np.float64)
+    port = port.double()
+    port.load_state_dict(teatgt_from_jax(variables, tcfg))
+    EigBridge(monkeypatch)
+    draws = DrawBridge(monkeypatch)
+    monkeypatch.setattr(ttokengt, "fixed_noise", JaxFixedDraws)
+    entry = _entry(15)
+    with jax.enable_x64(True):
+        jout = jax.tree.map(np.asarray, JTeatGT(jcfg).apply(variables, entry, phase="test"))
+    with torch.no_grad():
+        out = port(entry_to_torch(entry))
+    draws.assert_consumed({"rand": 0, "orf": 1}.get(tcfg.node_id_mode, tcfg.encoder_layers))
+    assert sorted(out) == sorted(jout)
+    for k in jout:
+        _close(out[k], jout[k], k)

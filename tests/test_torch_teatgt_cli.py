@@ -35,7 +35,7 @@ from cli_parity_utils import (
     stats,
     synthetic_head,
 )
-from teatgt_parity_utils import EigBridge
+from teatgt_parity_utils import DrawBridge, EigBridge, JaxFixedDraws
 from torch_parity_utils import random_tree, write_ag_tree
 
 import vidsgg.cli.data_source as jds
@@ -44,6 +44,7 @@ import vidsgg.eval.evaluator as jeval
 import vidsgg_torch.cli.data_source as tds
 import vidsgg_torch.cli.teatgt_test as tcli
 import vidsgg_torch.eval.evaluator as teval
+import vidsgg_torch.models.tokengt as ttokengt
 from vidsgg.models.convert_teatgt import expected_teatgt_shapes
 from vidsgg.train.state import TrainState
 from vidsgg_torch.cli.teatgt_test import SYNTHETIC_CLIPS
@@ -188,11 +189,26 @@ def test_ckpt_cli_matches_vidsgg(tmp_path, monkeypatch, capsys):
     assert_same_preds(port_preds, jax_run["preds"])
 
 
+@pytest.mark.parametrize("flag", ["--rand_node_id", "--orf_node_id"])
+def test_node_id_flags_match_vidsgg(flag, tmp_path, monkeypatch, capsys):
+    """TokenGT's random node identifiers: both CLIs serve the same, the
+    port handed ``vidsgg``'s test-time draws (``rand``: its uniform draws
+    from ``PRNGKey(0)``, ``JaxFixedDraws``; ``orf``: its orthogonal random
+    matrices, ``DrawBridge``). Compared as
+    ``test_cli_matches_vidsgg_on_synthetic_videos``."""
+    argv = ["--mode", "predcls", "--synthetic", "2", flag] + MODEL_FLAGS
+    synthetic_head(monkeypatch)
+    draws = DrawBridge(monkeypatch)
+    monkeypatch.setattr(ttokengt, "fixed_noise", JaxFixedDraws)
+    jax_run, _, port_preds, _ = _run_both(argv, tmp_path, monkeypatch, capsys)
+    assert_same_preds(port_preds, jax_run["preds"])
+    # orf: one [clips, Tn, Tn] draw a video
+    draws.assert_consumed(2 if flag == "--orf_node_id" else 0)
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--int8"], "item 7b"),
     (["--profile", "trace/"], "item 7b"),
-    (["--rand_node_id"], "item 6c"),
-    (["--orf_node_id"], "item 6c"),
     (["--pair_detect", "2"], "item 7b"),
 ])
 def test_unported_flags_exit_nonzero(flags, item):
@@ -224,7 +240,7 @@ def test_run_config_matches_vidsgg():
         got, want = TeatGTRunConfig.from_args(argv), JRunConfig.from_args(argv)
         assert vars(got) == vars(want)
         g, w = vars(got.model_config()), vars(want.model_config())
-        assert g.keys() <= w.keys()      # the performer's width comes with item 6c
+        assert g.keys() == w.keys()
         assert {k: v for k, v in g.items() if k != "caps"} == {
             k: w[k] for k in g if k != "caps"}
         assert vars(g["caps"]) == vars(w["caps"])

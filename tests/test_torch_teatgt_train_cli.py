@@ -16,9 +16,10 @@ and ``--use_ctl_loss``, against ``vidsgg``'s CLI and what it hands on:
   trained state served directly;
 * a checkpoint names the model it holds: ``tempura_test --ckpt`` refuses a
   TEAT-GT checkpoint and ``teatgt_test --ckpt`` a TEMPURA one;
-* ``--mode sgcls`` and ``--mode sgdet`` exit naming item 6b-ii, and the
-  other refused flags their items; without ``--device cpu`` the CLI
-  raises here (no card).
+* the refused flags exit naming their items; without ``--device cpu``
+  the CLI raises here (no card). ``--mode sgcls``, ``--mode sgdet``,
+  ``--rand_node_id`` and ``--orf_node_id`` against ``vidsgg``'s CLI:
+  ``test_torch_teatgt_train_cli_modes.py``, through :func:`run_both`.
 
 Both CLIs train in float64 (JAX in its x64 context; the port's model
 built in float64) from ``vidsgg``'s seeded weights (its initialiser
@@ -33,7 +34,9 @@ what the two packages cannot share by computing it:
 * ``vidsgg``'s dropout masks and sign flips of every step
   (``SharedNoise.replay_all``);
 * its eigendecompositions in call order (``EigBridge``: the train steps'
-  clip and frame graphs, then validation's);
+  clip and frame graphs, then validation's), and with ``--orf_node_id``
+  its orthogonal random matrices (``DrawBridge``) and with
+  ``--rand_node_id`` its test-time identifiers (``JaxFixedDraws``);
 * the gradients whose true value is 0 and which each package computes as
   its own rounding noise, which decides whether AdamW skips a tensor: the
   pooling gates' biases, and the structural encoder on a step whose frame
@@ -54,7 +57,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from teatgt_parity_utils import EigBridge, RoundingNoiseBridge
+from teatgt_parity_utils import DrawBridge, EigBridge, JaxFixedDraws, RoundingNoiseBridge
 from test_torch_train_cli import NUM, VAL_LINE, MemoryStore, vidsgg_saves
 from torch_parity_utils import entry_to_torch, random_tree, write_ag_tree
 from train_parity_utils import SharedNoise, adamw_counts, adamw_moments, close, compare_state
@@ -66,6 +69,7 @@ import vidsgg_torch.cli.data_source as tds
 import vidsgg_torch.cli.teatgt_test as tcli
 import vidsgg_torch.cli.teatgt_train as tcli_train
 import vidsgg_torch.cli.tempura_test as tempura_test
+import vidsgg_torch.models.tokengt as ttokengt
 from vidsgg.configs.teatgt import TeatGTRunConfig as JRunConfig
 from vidsgg.data.entry import Entry as JEntry
 from vidsgg.data.entry import EntryCapacity as JCap
@@ -129,16 +133,20 @@ def float64_teatgt(monkeypatch, module, variables=None):
     monkeypatch.setattr(module, "TeatGT", build)
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """``vidsgg``'s run and the port's, same flags, in float64, the port
-    handed ``vidsgg``'s weights, draws, decompositions and gate-bias
-    noise: (vidsgg's final state, its stdout, its saves), (the port's
-    state, stdout, store)."""
-    mp = pytest.MonkeyPatch()
-    tmp = tmp_path_factory.mktemp("teatgt_train_cli")
+def run_both(mp, tmp, mode="predcls", config=(), videos=2, epochs=2, model=MODEL):
+    """``vidsgg``'s run of ``teatgt_train --mode <mode> --synthetic <videos>
+    --nepoch <epochs> --log_iter 1 --use_ctl_loss`` with the ``model`` and
+    ``config`` flags, and the port's, in float64, the port handed
+    ``vidsgg``'s weights, videos, draws, decompositions and (with a
+    consistency loss) rounding noise: (vidsgg's final state, its stdout,
+    its saves), (the port's state, stdout, store), the rounding bridge
+    (None without a consistency loss)."""
     jsaves = []
-    run_cfg = JRunConfig.from_args(["--mode", "predcls"] + MODEL)
+    config = ["--mode", mode] + list(model) + list(config)
+    argv = config + ["--synthetic", str(videos), "--nepoch", str(epochs), "--log_iter", "1",
+                     "--use_ctl_loss"]
+    steps = videos * epochs
+    run_cfg = JRunConfig.from_args(config)
     # built before the recorders patch JAX: this trace would be recorded too
     with jax.enable_x64(True):
         shapes = expected_teatgt_shapes(run_cfg.model_config(JClipCaps(*dataclasses.astuple(
@@ -148,84 +156,98 @@ def runs(tmp_path_factory):
     def state(model, cfg, entry_template, rng, tx):
         params = jax.tree.map(jnp.asarray, variables["params"])
         assert jax.tree.map(np.shape, params) == jax.tree.map(np.shape, shapes["params"])
+        assert not cfg.tracking          # vidsgg's _MemCfg: a [36, 1024] object bank
         return TrainState(
-            step=jnp.zeros((), jnp.int32), params=params, batch_stats={},
+            step=jnp.zeros((), jnp.int32), params=params,
+            batch_stats=jax.tree.map(jnp.asarray, variables.get("batch_stats", {})),
             opt_state=tx.init(params), rel_memory=jnp.zeros((26, 1936)),
             obj_memory=jnp.zeros((36, 1024)), mem_active=jnp.asarray(False),
             apply_fn=model.apply, tx=tx)
 
-    try:
-        # vidsgg's draws inside its train steps (its data pipeline draws too)
-        noise = SharedNoise(mp, heads=(), rows=set())
-        noise.active = False
-        base_step = jloop.make_train_step
+    # vidsgg's draws inside its train steps (its data pipeline draws too)
+    noise = SharedNoise(mp, heads=(), rows=set())
+    noise.active = False
+    base_step = jloop.make_train_step
 
-        def make_train_step(flags):
-            step = base_step(flags)
+    def make_train_step(flags):
+        step = base_step(flags)
 
-            def recorded(*args):
-                noise.active = True
-                try:
-                    return step(*args)
-                finally:
-                    noise.active = False
-            return recorded
+        def recorded(*args):
+            noise.active = True
+            try:
+                return step(*args)
+            finally:
+                noise.active = False
+        return recorded
 
-        mp.setattr(jloop, "make_train_step", make_train_step)
-        bridge = EigBridge(mp)
-        rounding = RoundingNoiseBridge(mp)
-        mp.setattr(jcli_train, "create_train_state", state)
-        mp.setattr(jloop, "save_checkpoint", lambda path, st, name: jsaves.append((name, st)))
-        # every video vidsgg's sources yield, call by call (the first
-        # video's probe, the epochs' shuffled orders, validation), given
-        # AG's video size, so that the frame graphs have edges
-        calls = {True: [], False: []}
-        base_source = jds.make_synthetic_source
+    mp.setattr(jloop, "make_train_step", make_train_step)
+    bridge = EigBridge(mp)
+    draws = DrawBridge(mp, noise)
+    rounding = RoundingNoiseBridge(mp) if run_cfg.use_cons_str_loss else None
+    mp.setattr(jcli_train, "create_train_state", state)
+    mp.setattr(jloop, "save_checkpoint", lambda path, st, name: jsaves.append((name, st)))
+    # every video vidsgg's sources yield, call by call (the first video's
+    # probe, the epochs' shuffled orders, validation), given AG's video
+    # size, so that the frame graphs have edges
+    calls = {True: [], False: []}
+    base_source = jds.make_synthetic_source
 
-        def recording_source(n_videos, cap, seed=0, shuffle=True, **kw):
-            src = base_source(n_videos, cap, seed=seed, shuffle=shuffle, **kw)
+    def recording_source(n_videos, cap, seed=0, shuffle=True, **kw):
+        src = base_source(n_videos, cap, seed=seed, shuffle=shuffle, **kw)
 
-            def source():
-                calls[shuffle].append([])
-                for entry, fmaps, ann in src():
-                    video = (entry.replace(video_size=jnp.asarray(AG_VIDEO_SIZE)), fmaps, ann)
-                    calls[shuffle][-1].append(video)
-                    yield video
-            return source
+        def source():
+            calls[shuffle].append([])
+            for entry, fmaps, ann in src():
+                video = (entry.replace(video_size=jnp.asarray(AG_VIDEO_SIZE)), fmaps, ann)
+                calls[shuffle][-1].append(video)
+                yield video
+        return source
 
-        mp.setattr(jds, "make_synthetic_source", recording_source)
-        with jax.enable_x64(True):
-            jstate, jout = _run(jcli_train.main, RUN + ["--save_path", str(tmp / "jax")])
-        jax.effects_barrier()
-        replay = noise.replay_all(STEPS)
+    mp.setattr(jds, "make_synthetic_source", recording_source)
+    with jax.enable_x64(True):
+        jstate, jout = _run(jcli_train.main, argv + ["--save_path", str(tmp / "jax")])
+    jax.effects_barrier()
+    replay = noise.replay_all(steps)
 
-        def create(model, **kw):
-            st = create_train_state(model, **kw)
+    def create(model, **kw):
+        st = create_train_state(model, **kw)
+        if rounding is not None:
             rounding.install(st.optimizer, st.model)
-            return st
+        return st
 
-        def replayed_source(n_videos, cap, seed=0, shuffle=True, device=None):
-            def source():
-                for entry, fmaps, ann in calls[shuffle].pop(0):
-                    yield entry_to_torch(entry), torch.from_numpy(np.asarray(fmaps)), ann
-            return source
+    def replayed_source(n_videos, cap, seed=0, shuffle=True, device=None):
+        def source():
+            for entry, fmaps, ann in calls[shuffle].pop(0):
+                yield entry_to_torch(entry), torch.from_numpy(np.asarray(fmaps)), ann
+        return source
 
-        mp.setattr(tds, "make_synthetic_source", replayed_source)
-        float64_teatgt(mp, tcli_train, variables)
-        mp.setattr(tcli_train, "Noise", types.SimpleNamespace(seeded=lambda seed, dev: replay))
-        mp.setattr(tcli_train, "create_train_state", create)
-        store = MemoryStore(mp, keep=("checkpoint_final",), train_cli=tcli_train,
-                            test_cli=tcli)
-        tstate, tout = _run(tcli_train.main, RUN + ["--device", "cpu",
-                                                    "--save_path", str(tmp / "port")])
-        assert replay.exhausted() and not any(calls.values())
-        bridge.assert_consumed()
+    mp.setattr(tds, "make_synthetic_source", replayed_source)
+    float64_teatgt(mp, tcli_train, variables)
+    mp.setattr(tcli_train, "Noise", types.SimpleNamespace(seeded=lambda seed, dev: replay))
+    mp.setattr(tcli_train, "create_train_state", create)
+    mp.setattr(ttokengt, "fixed_noise", JaxFixedDraws)
+    store = MemoryStore(mp, keep=("checkpoint_final",), train_cli=tcli_train, test_cli=tcli)
+    tstate, tout = _run(tcli_train.main, argv + ["--device", "cpu",
+                                                 "--save_path", str(tmp / "port")])
+    assert replay.exhausted() and not any(calls.values())
+    bridge.assert_consumed()
+    draws.assert_consumed(draws.calls)
+    assert rounding is None or not rounding.recorded
+    return (jstate, jout, jsaves), (tstate, tout, store), rounding
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The predcls runs of ``run_both``: 2 videos x 2 epochs."""
+    mp = pytest.MonkeyPatch()
+    try:
+        jrun, trun, rounding = run_both(mp, tmp_path_factory.mktemp("teatgt_train_cli"))
         # one training video's frame graphs are alike in every frame: its
         # step in each epoch has a structural loss of 0
-        assert not rounding.recorded and rounding.structural_steps == 2
+        assert rounding.structural_steps == 2
     finally:
         mp.undo()
-    yield (jstate, jout, jsaves), (tstate, tout, store)
+    yield jrun, trun
 
 
 def test_predcls_run_prints_and_saves_as_vidsgg(runs):
@@ -369,21 +391,18 @@ def test_checkpoints_name_their_model(runs, monkeypatch):
         tcli.main(ckpt + MODEL)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--mode", "sgcls"], "item 6b-ii"),
-    (["--mode", "sgdet"], "item 6b-ii"),
-    (["--data_parallel", "2"], "item 7b"),
-    (["--int8"], "item 7b"),
-    (["--profile", "trace/"], "item 7b"),
-    (["--rand_node_id"], "item 6c"),
-    (["--orf_node_id"], "item 6c"),
+@pytest.mark.parametrize("flags,refused,item", [
+    (["--data_parallel", "2"], "--data_parallel", "item 7b"),
+    (["--int8"], "--int8", "item 7b"),
+    (["--profile", "trace/"], "--profile", "item 7b"),
+    (["--mode", "sgdet", "--pair_detect", "2"], "--pair_detect", "item 7b"),
 ])
-def test_refused_flags_exit_naming_their_item(flags, item):
+def test_refused_flags_exit_naming_their_item(flags, refused, item):
     with pytest.raises(SystemExit) as exc:
         tcli_train.main(["--synthetic", "1", "--device", "cpu"] + flags)
     assert exc.value.code not in (0, None)
     assert f"ROADMAP.md queue 1 {item}" in str(exc.value.code)
-    assert " ".join(flags[:2] if flags[0] == "--mode" else flags[:1]) in str(exc.value.code)
+    assert refused in str(exc.value.code)
 
 
 def test_train_cli_runs_on_the_card_by_default():

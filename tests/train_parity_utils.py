@@ -19,6 +19,7 @@ from __future__ import annotations
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -26,6 +27,22 @@ from vidsgg_torch.convert import tempura_from_jax
 from vidsgg_torch.models.noise import ReplayNoise
 
 TOL = 1e-8
+
+
+def exact_callback(fn, x, ordered: bool = False):
+    """``jax.debug.callback(fn, x)`` that hands ``fn`` the value of ``x``
+    exactly: a jitted function's callback runs outside the thread-local
+    x64 context, where a float64 argument would arrive rounded to float32,
+    so such an argument travels as its bits (two uint32 words a value)."""
+    if x.dtype != jnp.float64:
+        jax.debug.callback(lambda v: fn(np.array(v)), x, ordered=ordered)
+        return
+
+    def unpack(bits):
+        bits = np.ascontiguousarray(np.array(bits, np.uint32))
+        fn(bits.view(np.float64).reshape(bits.shape[:-1]))
+
+    jax.debug.callback(unpack, jax.lax.bitcast_convert_type(x, jnp.uint32), ordered=ordered)
 
 
 def close(got, want, name, tol: float = TOL):
@@ -89,7 +106,8 @@ class SharedNoise:
                 return u
             index = len(self.uniform_shapes)
             self.uniform_shapes.append(tuple(shape))
-            jax.debug.callback(functools.partial(self._store, "uniforms", index), u)
+            # exactly: TokenGT's random node identifiers are these values
+            exact_callback(functools.partial(self._store, "uniforms", index), u)
             return u
 
         monkeypatch.setattr(jax.random, "bernoulli", recording_bernoulli)
@@ -116,6 +134,12 @@ class SharedNoise:
         self.eps.clear()
         self.uniforms.clear()
         return out
+
+    def retrace(self):
+        """Forget the traced program's draw order, before another traced
+        function draws (the test phase's, then a train step's)."""
+        self.shapes.clear()
+        self.uniform_shapes.clear()
 
     def replay_all(self, steps: int) -> ReplayNoise:
         """The draws of the ``steps`` steps run since the recorder was made

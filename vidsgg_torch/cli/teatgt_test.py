@@ -8,7 +8,9 @@ Runs the Action Genome test split (or ``--synthetic N`` videos) through
 under the three constraint regimes plus the temporal-consistency score. It
 runs on the CUDA card, and raises without one; ``--device cpu`` runs the
 plain CPU versions. The reference's 10-video truncation is opt-in via
-``--max_videos``. ``--ckpt DIR [--ckpt_name NAME]`` serves the model of a
+``--max_videos``. ``--rand_node_id`` and ``--orf_node_id`` give TokenGT
+random node identifiers (drawn from a fixed torch seed: not ``vidsgg``'s
+values). ``--ckpt DIR [--ckpt_name NAME]`` serves the model of a
 ``teatgt_train`` checkpoint (``DIR/NAME.pt``, ``best_recall`` by default);
 give it the run's model flags (``--use_cons_*_loss`` among them: the
 regularizer's parameters are part of the checkpoint).
@@ -41,9 +43,9 @@ from vidsgg_torch.eval import (
 )
 from vidsgg_torch.models import TeatGT
 from vidsgg_torch.models.graph_build import ClipCaps
-from vidsgg_torch.models.tokengt import RANDOM_DRAWS
 from vidsgg_torch.train import EvalPipeline, ServingState, create_serving_state
 from vidsgg_torch.train.checkpoint import load_payload, restore_serving
+from vidsgg_torch.train.state import TEATGT_OBJ_DIM
 
 SURFACE = "ROADMAP.md queue 1 item 7b"
 
@@ -61,11 +63,12 @@ def ag_clip_caps(max_frames: int) -> ClipCaps:
 
 
 def build_relation_state(cfg: TeatGTRunConfig, clips: ClipCaps, device) -> ServingState:
-    """TEAT-GT for ``cfg`` with random weights from seed 0 (``--ckpt`` then
-    restores a checkpoint into it)."""
+    """TEAT-GT for ``cfg`` with random weights from seed 0 and ``vidsgg``'s
+    [36, 1024] object bank (``--ckpt`` then restores a checkpoint into
+    it)."""
     model = TeatGT(cfg.model_config(clips), device=device,
                    generator=torch.Generator().manual_seed(0))
-    return create_serving_state(model)
+    return create_serving_state(model, obj_dim=TEATGT_OBJ_DIM)
 
 
 def main(argv=None):
@@ -80,8 +83,6 @@ def main(argv=None):
     refuse_unported("teatgt_test", [
         (cfg.int8, "--int8", f"{SURFACE} (int8 serving)"),
         (profile_dir is not None, "--profile", f"{SURFACE} (profiling)"),
-        (cfg.rand_node_id, "--rand_node_id", RANDOM_DRAWS),
-        (cfg.orf_node_id, "--orf_node_id", RANDOM_DRAWS),
     ])
     device = resolve_device(device_flag)
     data_source.resolve_serving_flags(cfg, max_videos, device, "teatgt_test")

@@ -4,17 +4,21 @@ counterpart of ``vidsgg/cli/teatgt_train.py``).
     python -m vidsgg_torch.cli.teatgt_train --mode predcls --data_path AG/ \\
         --use_cons_str_loss --use_cons_sem_loss --use_ctl_loss
 
-Trains TEAT-GT in predcls on the Action Genome train split (GT boxes
-through the frozen detector; ``--model_path`` loads a jwyang Faster R-CNN
-checkpoint) or on ``--synthetic N`` GT-box videos, validating on the test
-split every epoch, and writes the port's checkpoints to ``--save_path``
-(TEAT-GT keeps no memory banks: the loop runs with memory off, as
-``vidsgg``'s). ``--resume DIR`` restores ``DIR/best_recall.pt`` (model,
-optimizer, step) first, as the port's ``tempura_train`` does. It runs on
-the CUDA card, and raises without one; ``--device cpu`` runs on the CPU.
-``--mode sgcls`` and ``--mode sgdet``, ``--data_parallel > 1``,
-``--int8``, ``--profile``, ``--rand_node_id`` and ``--orf_node_id`` exit
-naming the ``ROADMAP.md`` item that brings them.
+Trains TEAT-GT in predcls, sgcls or sgdet on the Action Genome train
+split (predcls and sgcls: GT boxes through the frozen detector; sgdet:
+the detector's boxes, assigned to the GT, plus SUPPLY rows for the GT
+boxes it missed; ``--model_path`` loads a jwyang Faster R-CNN checkpoint)
+or on ``--synthetic N`` GT-box videos in every mode, validating on the
+test split every epoch, and writes the port's checkpoints to
+``--save_path`` (TEAT-GT reads no memory: the loop runs with memory off,
+as ``vidsgg``'s, and the state's object bank is [36, 1024] in every mode,
+as ``vidsgg``'s). ``--rand_node_id`` and ``--orf_node_id`` give TokenGT
+random node identifiers. ``--resume DIR`` restores ``DIR/best_recall.pt``
+(model, optimizer, step) first, as the port's ``tempura_train`` does. It
+runs on the CUDA card, and raises without one; ``--device cpu`` runs on
+the CPU. ``--data_parallel > 1``, ``--int8``, ``--profile`` and sgdet's
+``--pair_detect > 1`` exit naming the ``ROADMAP.md`` item that brings
+them.
 """
 
 from __future__ import annotations
@@ -30,18 +34,18 @@ from vidsgg_torch.cli.teatgt_test import SYNTHETIC_CLIPS, ag_clip_caps
 from vidsgg_torch.configs.teatgt import TeatGTRunConfig
 from vidsgg_torch.data.action_genome import ActionGenome
 from vidsgg_torch.data.entry import EntryCapacity
+from vidsgg_torch.detector import SgdetCaps, SgdetFrontend
 from vidsgg_torch.device import resolve_device
 from vidsgg_torch.models import TeatGT
 from vidsgg_torch.models.embeddings import word_vectors_available
 from vidsgg_torch.models.noise import Noise
-from vidsgg_torch.models.tokengt import RANDOM_DRAWS
 from vidsgg_torch.runtime.prefetch import prefetch
 from vidsgg_torch.train import create_train_state
 from vidsgg_torch.train.checkpoint import restore_checkpoint
 from vidsgg_torch.train.loop import TrainLoopConfig, run_training
 from vidsgg_torch.train.metrics import MetricsWriter
+from vidsgg_torch.train.state import TEATGT_OBJ_DIM
 
-DETECTOR_MODES = "ROADMAP.md queue 1 item 6b-ii (TEAT-GT sgcls and sgdet training)"
 SURFACE = "ROADMAP.md queue 1 item 7b"
 
 
@@ -56,12 +60,11 @@ def main(argv=None):
         os.environ["VIDSGG_WORD_VECTORS"] = word_vectors
     cfg = TeatGTRunConfig.from_args(argv)
     refuse_unported("teatgt_train", [
-        (cfg.mode != "predcls", f"--mode {cfg.mode}", DETECTOR_MODES),
         (cfg.data_parallel > 1, "--data_parallel", f"{SURFACE} (data-parallel training)"),
+        (cfg.mode == "sgdet" and cfg.pair_detect > 1, "--pair_detect",
+         f"{SURFACE} (paired sgdet training)"),
         (cfg.int8, "--int8", f"{SURFACE} (int8)"),
         (profile_dir is not None, "--profile", f"{SURFACE} (profiling)"),
-        (cfg.rand_node_id, "--rand_node_id", RANDOM_DRAWS),
-        (cfg.orf_node_id, "--orf_node_id", RANDOM_DRAWS),
     ])
     device = resolve_device(device_flag)
     print(f">>> TEAT-GT train: mode={cfg.mode} synthetic={synthetic or 'off'}")
@@ -90,16 +93,27 @@ def main(argv=None):
         buckets = data_source.default_buckets(max_frames=cfg.bucket_frames)
         cap = buckets[-1]
         clips = ag_clip_caps(cap.max_frames)
-        train_ds = ActionGenome("train", cfg.datasize, cfg.data_path, filter_small_box=False,
+        train_ds = ActionGenome("train", cfg.datasize, cfg.data_path,
+                                filter_small_box=cfg.mode != "predcls",
                                 target_min_side=cfg.frame_size)
-        test_ds = ActionGenome("test", cfg.datasize, cfg.data_path, filter_small_box=False,
+        test_ds = ActionGenome("test", cfg.datasize, cfg.data_path,
+                               filter_small_box=cfg.mode != "predcls",
                                target_min_side=cfg.frame_size)
         det, canvases = data_source.build_detector(
             cfg.model_path, tiny=cfg.tiny_detector, frame_size=cfg.frame_size, device=device)
-        train_src = data_source.make_ag_source(train_ds, buckets, det, seed=cfg.seed,
-                                               canvases=canvases)
-        val_src = data_source.make_ag_source(test_ds, buckets, det, shuffle=False,
-                                             canvases=canvases)
+        if cfg.mode == "sgdet":
+            # full-detection training: the detector's boxes, GT assignment
+            # and SUPPLY, not the GT-box featurization
+            frontend = SgdetFrontend(det, SgdetCaps(), cap, device=device)
+            train_src = data_source.make_sgdet_source(train_ds, cap, frontend, is_train=True,
+                                                      seed=cfg.seed, canvases=canvases)
+            val_src = data_source.make_sgdet_source(test_ds, cap, frontend, shuffle=False,
+                                                    canvases=canvases)
+        else:
+            train_src = data_source.make_ag_source(train_ds, buckets, det, seed=cfg.seed,
+                                                   canvases=canvases)
+            val_src = data_source.make_ag_source(test_ds, buckets, det, shuffle=False,
+                                                 canvases=canvases)
         steps_per_epoch = len(train_ds)
 
     model = TeatGT(cfg.model_config(clips), device=device,
@@ -110,8 +124,8 @@ def main(argv=None):
     # probe draws the source's first order (a shuffle), so the port makes
     # it too and every epoch sees vidsgg's order
     next(iter(train_src()))
-    state = create_train_state(model, base_lr=cfg.lr, warmup_period=cfg.warmup,
-                               steps_per_epoch=steps_per_epoch)
+    state = create_train_state(model, obj_dim=TEATGT_OBJ_DIM, base_lr=cfg.lr,
+                               warmup_period=cfg.warmup, steps_per_epoch=steps_per_epoch)
     if resume:
         # restores the parameters, the optimizer and the step
         state = restore_checkpoint(resume, state, "best_recall")

@@ -107,8 +107,8 @@ def main(argv=None):
                                                  canvases=canvases)
         steps_per_epoch = len(train_ds)
 
-    model_cfg = cfg.model_config()
-    model = Tempura(model_cfg, device=device, generator=torch.Generator().manual_seed(cfg.seed))
+    model = Tempura(cfg.model_config(), device=device,
+                    generator=torch.Generator().manual_seed(cfg.seed))
     # the schedule is epoch-indexed: one update per video on one device
     steps_per_epoch = max(1, steps_per_epoch)
     # vidsgg probes the first training video for its state's shapes; the
@@ -135,7 +135,7 @@ def main(argv=None):
         data_parallel=cfg.data_parallel,
     )
     state = run_training(state, cfg.loss_flags(), loop_cfg, train_src, val_src, cap, writer,
-                         Noise.seeded(cfg.seed + 1, device), model_cfg=model_cfg)
+                         Noise.seeded(cfg.seed + 1, device))
     writer.close()
     print(">>> TEMPURA train complete")
     return state

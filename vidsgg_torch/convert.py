@@ -259,8 +259,11 @@ def teatgt_from_jax(variables, cfg) -> dict:
     """``vidsgg.models.teatgt.TeatGT`` variables -> the port's
     :class:`~vidsgg_torch.models.teatgt.TeatGT` state_dict for ``cfg``
     (the inverse of ``vidsgg/models/convert_teatgt.py``; each pooling
-    gate is written under both of its names). The regularizer's subtrees
-    are carried where the tree has them (:func:`regularizer_from_jax`)."""
+    gate is written under both of its names): TokenGT's softmax or FAVOR+
+    projections, its node-identifier encoder under the name of
+    ``cfg.node_id_mode``, and in sgcls and sgdet the OSPU. The
+    regularizer's subtrees are carried where the tree has them
+    (:func:`regularizer_from_jax`)."""
     p, s = variables["params"], variables.get("batch_stats", {})
     sd: dict = {}
     _linear(sd, "subj_fc", p["subj_fc"])
@@ -272,11 +275,14 @@ def teatgt_from_jax(variables, cfg) -> dict:
     _linear(sd, f"{gf}.atom_encoder", tg["atom_encoder"])
     for name in ("temp_encoder", "edge_encoder", "order_encoder", "graph_token", "null_token"):
         sd[f"{gf}.{name}.weight"] = _a(tg[name])
-    _linear(sd, f"{gf}.lap_encoder", tg["lap_encoder"])
+    # vidsgg routes every kind of node identifier through ``lap_encoder``;
+    # the port's encoder has the reference's name for its kind
+    _linear(sd, f"{gf}.{cfg.node_id_mode}_encoder", tg["lap_encoder"])
+    attn = "MultiheadPerformerAttention_0" if cfg.performer else "MultiheadAttention_0"
     for i in range(cfg.encoder_layers):
         lp, layer = f"TokenGT_encoder.graph_encoder.layers.{i}", tg[f"layer_{i}"]
         for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            _linear(sd, f"{lp}.self_attn.{proj}", layer["MultiheadAttention_0"][proj])
+            _linear(sd, f"{lp}.self_attn.{proj}", layer[attn][proj])
         _norm(sd, f"{lp}.self_attn_layer_norm", layer["LayerNorm_0"])
         _norm(sd, f"{lp}.final_layer_norm", layer["LayerNorm_1"])
         _linear(sd, f"{lp}.feedforward.fc1", layer["Dense_0"])

@@ -7,7 +7,10 @@
 such draw through a :class:`Noise`, which holds the run's
 ``torch.Generator``: the model's forward takes it as an argument, and a
 test or a device comparison hands it a :class:`ReplayNoise` of recorded
-draws instead (:class:`RecordingNoise` records them).
+draws instead (:class:`RecordingNoise` records them). TokenGT's random
+node identifiers and the Performer's projection draw even at test time:
+there from :func:`fixed_noise`, a CPU generator of a fixed seed, the same
+draws on every device.
 
 :func:`dropout` is Flax's arithmetic: ``where(mask, x / keep, 0)``.
 """
@@ -45,6 +48,18 @@ class Noise:
         out = torch.rand(shape, dtype=dtype, device=self.generator.device,
                          generator=self.generator)
         return out.to(device)
+
+
+# the test-time draws' seed: vidsgg draws those from jax.random.PRNGKey(0),
+# whose threefry values no torch generator reproduces
+FIXED_SEED = 0
+
+
+def fixed_noise() -> Noise:
+    """The deterministic phase's draws: a fresh CPU generator seeded
+    :data:`FIXED_SEED`, so that every call and every device draws the same
+    values."""
+    return Noise.seeded(FIXED_SEED, "cpu")
 
 
 class RecordingNoise:

@@ -8,9 +8,11 @@ Names are ``nn.BatchNorm``'s.
 * eval (``use_running_average=True``): the running statistics; the mask
   does not enter.
 * train: the moments of the *valid* elements only (padding rows would
-  pollute plain batch statistics): the biased masked variance normalises,
-  and the unbiased one, ``var * cnt / max(cnt - 1, 1)``, goes into the
-  running variance, as torch's BatchNorm tracks it, at ``momentum``.
+  pollute plain batch statistics), in the input's type as ``vidsgg``'s
+  (a float32 input's moments are float32 even beside float64
+  parameters): the biased masked variance normalises, and the unbiased
+  one, ``var * cnt / max(cnt - 1, 1)``, goes into the running variance,
+  as torch's BatchNorm tracks it, at ``momentum``.
 """
 
 from __future__ import annotations
@@ -40,13 +42,13 @@ class MaskedBatchNorm(nn.Module):
         shape = [1] * x.dim()
         shape[dim] = -1
         dt = result_type(x, self.weight)
-        x = x.to(dt)
         w, b = (t.to(dt).reshape(shape) for t in (self.weight, self.bias))
         if use_running_average:
             mean, var = (t.to(dt).reshape(shape) for t in (self.running_mean, self.running_var))
+            x = x.to(dt)
         else:
             axes = tuple(a for a in range(x.dim()) if a != dim)
-            m = mask.unsqueeze(dim).expand(x.shape).to(dt)
+            m = mask.unsqueeze(dim).expand(x.shape).to(x.dtype)
             cnt = torch.clamp(m.sum(dim=axes, keepdim=True), min=1.0)
             mean = (x * m).sum(dim=axes, keepdim=True) / cnt
             var = ((x - mean) ** 2 * m).sum(dim=axes, keepdim=True) / cnt
@@ -58,4 +60,4 @@ class MaskedBatchNorm(nn.Module):
                 self.running_var.copy_(((1 - mom) * self.running_var
                                         + mom * unbiased.reshape(-1)))
         y = (x - mean) / torch.sqrt(var + weak(self.eps, var))
-        return y * w + b
+        return y.to(dt) * w + b

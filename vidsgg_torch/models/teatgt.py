@@ -25,8 +25,10 @@ are independent; the pooled state is still returned as
 
 The phase is explicit, as in :mod:`~vidsgg_torch.models.tempura`:
 ``phase`` ("test" by default, "train"), ``deterministic`` (default: not
-the train phase) and ``noise`` (the run's draws: TokenGT's dropouts, eig
-dropout and sign flips) are arguments of every call; ``unc`` is taken and
+the train phase) and ``noise`` (the run's draws: the OSPU's dropouts in
+sgcls and sgdet, then TokenGT's dropouts, eig dropout and sign flips, or
+its random node identifiers) are arguments of every call, and
+``performer`` (the FAVOR+ projections' draws) of the train step's; ``unc`` is taken and
 unused, as in ``vidsgg`` (TEAT-GT has no GMM heads).
 
 Names are the reference checkpoint's keys (``subj_fc``, ``obj_fc``,
@@ -88,8 +90,9 @@ class TeatGTConfig:
     lap_node_id_k: int = 50
     lap_node_id_sign_flip: bool = True
     lap_node_id_eig_dropout: float = 0.2
-    node_id_mode: str = "lap"   # 'lap'; 'orf' and 'rand' are refused
-    performer: bool = False     # refused
+    node_id_mode: str = "lap"   # 'lap' | 'orf' | 'rand'
+    performer: bool = False     # FAVOR+ attention in TokenGT (a model option: no CLI flag)
+    performer_nb_features: int = 256
     spatial_thr: float = 0.5
     sim_thr: float = 0.75
     reg_lap_k: int = 10
@@ -143,7 +146,7 @@ class TeatGT(nn.Module):
             heads=cfg.encoder_attention_heads, ffn_dim=cfg.encoder_ffn_embed_dim,
             lap_node_id_k=cfg.lap_node_id_k, lap_sign_flip=cfg.lap_node_id_sign_flip,
             lap_eig_dropout=cfg.lap_node_id_eig_dropout, node_id_mode=cfg.node_id_mode,
-            performer=cfg.performer,
+            performer=cfg.performer, performer_nb_features=cfg.performer_nb_features,
         )
         self.gate_gru_nn = nn.Linear(cfg.encoder_embed_dim, 1)
         self.gap_gru = GlobalAttentionPooling(self.gate_gru_nn)
@@ -177,12 +180,14 @@ class TeatGT(nn.Module):
 
     def relation_forward(self, entry: Entry, obj_mem_features=None, rel_memory=None,
                          mem_active=False, *, phase: str = "test", unc: bool = False,
-                         deterministic: bool | None = None, noise=None) -> dict:
+                         deterministic: bool | None = None, noise=None,
+                         performer=None) -> dict:
         """Graph construction + TokenGT + heads (+ in the train phase the
         consistency regularizer's ``structure_temp_loss`` and
         ``semantic_temp_loss``, both whenever either loss is on). The
         memory arguments are taken for ``EvalPipeline``'s sake and unused:
-        TEAT-GT has no memory."""
+        TEAT-GT has no memory. ``performer``: the train step's draws of the
+        FAVOR+ projections (``cfg.performer``)."""
         cfg = self.cfg
         caps = cfg.caps
         if deterministic is None:
@@ -221,7 +226,7 @@ class TeatGT(nn.Module):
         with record_function("vidsgg.tokengt"):
             node_logits, node_hidden, _ = self.TokenGT_encoder(
                 cfeat, cmask, cframe, edge_index, edge_type, edge_mask, eigvec.float(),
-                deterministic, noise)
+                deterministic, noise, performer)
         out = {"clip_hidden_state": self.gap_gru(node_hidden, cmask)}
 
         # object-token logits -> pair axis; row p_cap takes every other token
@@ -251,16 +256,16 @@ class TeatGT(nn.Module):
 
     def forward(self, entry: Entry, rel_memory=None, obj_memory=None,
                 mem_active=False, *, phase: str = "test", unc: bool = False,
-                deterministic: bool | None = None, noise=None) -> dict:
-        """The full forward: OSPU (none in predcls), then the relation stage
-        on the entry as it is (the predcls test step; training in every
-        mode)."""
+                deterministic: bool | None = None, noise=None, performer=None) -> dict:
+        """The full forward: OSPU (none in predcls; its draws come first),
+        then the relation stage on the entry as it is (the predcls test
+        step; training in every mode)."""
         if deterministic is None:
             deterministic = phase != "train"
         kw = dict(phase=phase, unc=unc, deterministic=deterministic, noise=noise)
         aux = ({} if self.cfg.mode == "predcls"
                else self.classify_objects(entry, obj_memory, mem_active, **kw))
-        return {**aux, **self.relation_forward(entry, **kw)}
+        return {**aux, **self.relation_forward(entry, performer=performer, **kw)}
 
     def _consistency_losses(self, entry: Entry, layout, node_hidden):
         """Per-frame graph embeddings -> pairwise KL / dt within clips

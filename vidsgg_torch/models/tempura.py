@@ -232,11 +232,13 @@ class Tempura(PairFeatures):
 
     def forward(self, entry: Entry, rel_memory=None, obj_memory=None,
                 mem_active=False, *, phase: str = "test", unc: bool = False,
-                deterministic: bool | None = None, noise=None) -> dict:
+                deterministic: bool | None = None, noise=None, performer=None) -> dict:
         """The full forward: OSPU (none in predcls), then the relation stage
         on the entry as it is. The train step of every mode and the predcls
         test step; sgcls and sgdet tests relabel between the two stages
-        instead."""
+        instead. ``performer`` (the train step's Performer draws, which
+        ``vidsgg`` hands every model) is taken and unused: TEMPURA has no
+        Performer attention."""
         if deterministic is None:
             deterministic = phase != "train"
         aux = {} if self.cfg.mode == "predcls" else self.classify_objects(

@@ -28,10 +28,10 @@ weights (no checkpoint ships), 16-frame 608x1008 videos made from a seed.
   train steps (the second with filled banks) of a one-layer TEMPURA on a
   device and on the CPU with the same recorded noise; sgdet training's
   annotations and capacity (:func:`sgdet_train_annotation`,
-  :data:`SGDET_TRAIN_CAP`); TEAT-GT's: the train model at the published
-  predcls widths (:func:`build_teatgt_train`),
-  and :func:`teatgt_train_steps_card_vs_cpu`, the CPU's decompositions
-  handed to the device's run (:func:`injected_eigh`).
+  :data:`SGDET_TRAIN_CAP`); TEAT-GT's: the train model of each mode at the
+  published widths (:func:`build_teatgt_train`), and
+  :func:`teatgt_train_steps_card_vs_cpu`, the CPU's decompositions handed
+  to the device's run (:func:`injected_eigh`).
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ from vidsgg_torch.train import (
     make_train_step,
 )
 from vidsgg_torch.train.eval_pipeline import cast_floating
-from vidsgg_torch.train.state import obj_memory_dim
+from vidsgg_torch.train.state import TEATGT_OBJ_DIM, obj_memory_dim
 
 FRAMES, H, W = 16, 608, 1008
 DETS = 16
@@ -136,16 +136,20 @@ def build_teatgt(mode: str, device=None) -> TeatGT:
 TEATGT_TRAIN_ARGS = ["--use_cons_str_loss", "--use_cons_sem_loss", "--use_ctl_loss"]
 
 
-def build_teatgt_train(device=None):
-    """TEAT-GT as ``teatgt_train --mode predcls`` with
-    :data:`TEATGT_TRAIN_ARGS` builds it, at the
-    published predcls widths (12 layers x 32 heads, d = 768, FFN 768,
-    k = 50; with a consistency loss on, the regularizer's
-    ``GraphTransformer``s at k = 10 and d = 768) and the GT-box videos'
-    clip caps, from seed 3: (model, the run's loss flags)."""
-    run_cfg = TeatGTRunConfig.from_args(["--mode", "predcls"] + TEATGT_TRAIN_ARGS)
-    model = TeatGT(run_cfg.model_config(TEATGT_GT_CLIPS), device=device,
-                   generator=torch.Generator().manual_seed(3))
+def build_teatgt_train(device=None, mode: str = "predcls", args=(), **model_kw):
+    """TEAT-GT as ``teatgt_train --mode <mode>`` with
+    :data:`TEATGT_TRAIN_ARGS` (and ``args``, e.g. ``--rand_node_id``)
+    builds it, at the published widths (d = 768, FFN 768, k = 50; predcls
+    12 layers x 32 heads, sgcls and sgdet 6 x 16 with the tracking OSPU;
+    with a consistency loss on, the regularizer's ``GraphTransformer``s at
+    k = 10 and d = 768), with the GT-box videos' clip caps (sgdet: those
+    its Action Genome source gives a 16-frame bucket) and ``model_kw``
+    (``performer=True``: a model option, no flag), from seed 3: (model, the
+    run's loss flags)."""
+    run_cfg = TeatGTRunConfig.from_args(["--mode", mode] + TEATGT_TRAIN_ARGS + list(args))
+    clips = TEATGT_SGDET_CLIPS if mode == "sgdet" else TEATGT_GT_CLIPS
+    cfg = dataclasses.replace(run_cfg.model_config(clips), **model_kw)
+    model = TeatGT(cfg, device=device, generator=torch.Generator().manual_seed(3))
     return model, run_cfg.loss_flags()
 
 
@@ -293,20 +297,20 @@ def injected_eigh(recorded: list, inject: bool):
         teatgt.masked_laplacian_eig = eig
 
 
-TEATGT_TRAIN_FLAGS = TeatGTRunConfig.from_args(["--mode", "predcls"]
-                                              + TEATGT_TRAIN_ARGS).loss_flags()
-
-
-def _teatgt_reference(seed: int):
-    """A float64 TEAT-GT predcls with both consistency losses (2 layers at
-    the published width: d = 768, 32 heads, FFN 768, k = 50) from ``seed``
-    and a synthetic video (6 frames of 3 moving boxes in a 480x270 frame)
-    given a 240x135 video size: the spatial threshold (138 px) keeps some
-    pairs and cuts others, so the frame graphs vary and both losses are
-    nonzero."""
-    cfg = TeatGTConfig(mode="predcls", encoder_layers=2, caps=TEATGT_GT_CLIPS,
-                       use_cons_str_loss=True, use_cons_sem_loss=True)
+def _teatgt_reference(seed: int, mode: str):
+    """A float64 TEAT-GT of ``mode`` with both consistency losses (2 layers
+    at the published width: d = 768, FFN 768, k = 50, predcls 32 heads,
+    sgcls and sgdet 16 with the tracking OSPU, cut to one of its three
+    2376-wide tracking layers) from ``seed`` and a synthetic video (6
+    frames of 3 moving boxes in a 480x270 frame, the detector-style class
+    distribution) given a 240x135 video size: the spatial threshold (138
+    px) keeps some pairs and cuts others, so the frame graphs vary and both
+    losses are nonzero."""
+    cfg = TeatGTConfig.for_mode(mode, encoder_layers=2, caps=TEATGT_GT_CLIPS,
+                                use_cons_str_loss=True, use_cons_sem_loss=True)
     model = TeatGT(cfg, device="cpu", generator=torch.Generator().manual_seed(seed)).double()
+    if mode != "predcls":
+        del model.object_classifier.encoder_tran.layers[1:]
     entry = next(iter(make_synthetic_source(1, EntryCapacity(6, 18, 12), seed=seed,
                                             shuffle=False, device="cpu")()))[0]
     entry = dataclasses.replace(cast_floating(entry, torch.float64),
@@ -322,21 +326,25 @@ def _max_rel_err(got: dict, want: dict) -> float:
     return err
 
 
-def teatgt_train_steps_card_vs_cpu(device, seed: int = 0) -> tuple[float, dict]:
-    """Two float64 TEAT-GT predcls train steps (:func:`_teatgt_reference`;
-    the ctl and both consistency losses) on ``device`` and on the CPU, the
+def teatgt_train_steps_card_vs_cpu(device, seed: int = 0,
+                                   mode: str = "predcls") -> tuple[float, dict]:
+    """Two float64 TEAT-GT train steps of ``mode`` (:func:`_teatgt_reference`;
+    the train CLI's losses: the ctl and both consistency losses, and in
+    sgcls and sgdet the object loss) on ``device`` and on the CPU, the
     CPU's dropout masks and sign flips replayed and its decompositions
     injected on ``device``. Returns the largest difference of any loss,
-    gradient norm or parameter, relative to max(1, max|CPU's|) of its
-    tensor, and the CPU's two consistency losses of the first step."""
-    model, entry = _teatgt_reference(seed)
+    gradient norm, parameter or batch-norm statistic, relative to max(1,
+    max|CPU's|) of its tensor, and the CPU's two consistency losses of the
+    first step."""
+    model, entry = _teatgt_reference(seed, mode)
+    flags = TeatGTRunConfig.from_args(["--mode", mode] + TEATGT_TRAIN_ARGS).loss_flags()
     card_model = copy.deepcopy(model).to(device)
     noises = [RecordingNoise(Noise.seeded(seed + i, "cpu")) for i in range(2)]
     recorded = []
 
     def two_steps(m, e, draws):
-        state = create_train_state(m, steps_per_epoch=1)
-        step = make_train_step(TEATGT_TRAIN_FLAGS)
+        state = create_train_state(m, obj_dim=TEATGT_OBJ_DIM, steps_per_epoch=1)
+        step = make_train_step(flags)
         out = {}
         for i, noise in enumerate(draws):
             out.update({f"step {i} {k}": v for k, v in step(state, e, noise).items()})

@@ -36,7 +36,7 @@ from vidsgg_torch.eval import (
 from vidsgg_torch.train.checkpoint import save_checkpoint
 from vidsgg_torch.train.eval_pipeline import EvalPipeline
 from vidsgg_torch.train.metrics import MetricsWriter
-from vidsgg_torch.train.state import TrainState, obj_memory_dim
+from vidsgg_torch.train.state import TrainState
 from vidsgg_torch.train.steps import LossFlags, eval_step, make_train_step
 
 DATA_PARALLEL = "ROADMAP.md queue 1 item 7b (data-parallel training)"
@@ -85,10 +85,10 @@ def run_training(
     cap: EntryCapacity,
     writer: MetricsWriter,
     noise,
-    model_cfg=None,
 ) -> TrainState:
     """``train_data``/``val_data``: factories of (entry, fmaps, gt) streams;
-    ``noise``: the run's noise source (``models/noise.py``)."""
+    ``noise``: the run's noise source (``models/noise.py``). The object
+    memory's accumulator takes the width of the state's object bank."""
     if loop_cfg.data_parallel > 1:
         sys.exit(f"--data_parallel {loop_cfg.data_parallel}: data-parallel training is "
                  f"not ported to vidsgg_torch yet: {DATA_PARALLEL}")
@@ -96,7 +96,7 @@ def run_training(
     train_step = make_train_step(flags)
     pipeline = EvalPipeline(loop_cfg.mode, cap, device=device)
     best_recall, best_mrecall = 0.0, 0.0
-    obj_dim = obj_memory_dim(model_cfg) if model_cfg is not None else 1024
+    obj_dim = state.obj_memory.shape[-1]
 
     step_i = 0
     for epoch in range(loop_cfg.nepoch):

@@ -28,6 +28,12 @@ def obj_memory_dim(cfg) -> int:
     return OBJ_FEAT_DIM if cfg.tracking else 1024
 
 
+# TEAT-GT's object bank: vidsgg builds its states from a memory config
+# without tracking (``_MemCfg`` of its TEAT-GT CLIs), so [36, 1024] in every
+# mode; TEAT-GT reads no memory, but its checkpoints hold the bank
+TEATGT_OBJ_DIM = 1024
+
+
 @dataclasses.dataclass
 class ServingState:
     model: nn.Module            # Tempura or TeatGT
@@ -49,21 +55,23 @@ def cast_state_for_serving(state: ServingState, dtype: torch.dtype) -> ServingSt
     )
 
 
-def _empty_banks(model: nn.Module):
+def _empty_banks(model: nn.Module, obj_dim: int | None):
     """(rel_memory, obj_memory, mem_active): zero banks and False, on the
-    model's device and in its dtype."""
+    model's device and in its dtype; the object bank ``obj_dim`` wide
+    (None: :func:`obj_memory_dim` of the model's config)."""
     w = model.subj_fc.weight
     cfg = model.cfg
+    obj_dim = obj_memory_dim(cfg) if obj_dim is None else obj_dim
     return (torch.zeros((C.NUM_PREDICATES, REL_FEATURE_DIM), dtype=w.dtype, device=w.device),
-            torch.zeros((cfg.num_classes - 1, obj_memory_dim(cfg)), dtype=w.dtype,
-                        device=w.device),
+            torch.zeros((cfg.num_classes - 1, obj_dim), dtype=w.dtype, device=w.device),
             torch.zeros((), dtype=torch.bool, device=w.device))
 
 
-def create_serving_state(model: nn.Module) -> ServingState:
-    """Empty banks (zeros) and ``mem_active`` False, on the model's device
-    and in its dtype."""
-    return ServingState(model, *_empty_banks(model))
+def create_serving_state(model: nn.Module, obj_dim: int | None = None) -> ServingState:
+    """Empty banks (zeros; the object bank ``obj_dim`` wide, by default
+    the model config's :func:`obj_memory_dim`) and ``mem_active`` False, on
+    the model's device and in its dtype."""
+    return ServingState(model, *_empty_banks(model, obj_dim))
 
 
 @dataclasses.dataclass
@@ -90,13 +98,16 @@ class TrainState:
 PACKED_QKV = ("in_proj_weight", "in_proj_bias")
 
 
-def create_train_state(model: nn.Module, **optim_kw) -> TrainState:
-    """Empty banks, step 0, and :class:`ReferenceAdamW` over every parameter
-    of ``model`` (``optim_kw``: its schedule, e.g. ``steps_per_epoch``),
-    each packed q/k/v projection as three tensors."""
+def create_train_state(model: nn.Module, obj_dim: int | None = None,
+                       **optim_kw) -> TrainState:
+    """Empty banks (the object bank ``obj_dim`` wide, by default the model
+    config's :func:`obj_memory_dim`; TEAT-GT's is :data:`TEATGT_OBJ_DIM`),
+    step 0, and :class:`ReferenceAdamW` over every parameter of ``model``
+    (``optim_kw``: its schedule, e.g. ``steps_per_epoch``), each packed
+    q/k/v projection as three tensors."""
     from vidsgg_torch.train.optim import ReferenceAdamW
 
     names, params = zip(*model.named_parameters())
     segments = [3 if n.rsplit(".", 1)[-1] in PACKED_QKV else 1 for n in names]
     return TrainState(model, ReferenceAdamW(params, segments=segments, **optim_kw), 0,
-                      *_empty_banks(model))
+                      *_empty_banks(model, obj_dim))

@@ -10,6 +10,13 @@ TEAT-GT's (``ctl_variant="teatgt"``) at 0.25x with the attention term
 too; TEAT-GT's temporal-consistency terms x ``cons_weight`` (2500), each
 where its flag is on and the model returned it.
 
+The Performer's projections (TEAT-GT with ``performer=True``) come from
+their own draws, :func:`performer_noise`: a generator seeded from the
+step's redraw interval, the port's form of ``vidsgg``'s ``performer_rng``
+(a fixed key folded with ``step // performer_redraw_interval``), so that
+the projections stay for ``performer_redraw_interval`` steps and then are
+drawn anew.
+
 :func:`make_train_step` gives one step of ``vidsgg``'s: the train-phase
 forward (dropout and GMM noise from the run's noise source, batch
 statistics, running statistics updated), the loss sum, backward, the clip
@@ -26,6 +33,7 @@ import torch
 
 from vidsgg_torch.data.entry import Entry
 from vidsgg_torch.losses import contrastive_loss, masked_bce, masked_ce
+from vidsgg_torch.models.noise import Noise
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +49,19 @@ class LossFlags:
     cons_weight: float = 2500.0
     # TEMPURA: 0.2x spatial + contact; TEAT-GT: 0.25x with attention
     ctl_variant: str = "tempura"
+    # the Performer's projections are drawn anew every N steps
+    performer_redraw_interval: int = 1000
+
+
+# the Performer draws' base seed (vidsgg's performer_rng: PRNGKey(1123))
+PERFORMER_SEED = 1123
+
+
+def performer_noise(step: int, interval: int) -> Noise:
+    """The Performer's draws for ``step``: a CPU generator seeded from
+    :data:`PERFORMER_SEED` and ``step // interval``, the same draws on
+    every device and for every step of one interval."""
+    return Noise.seeded((PERFORMER_SEED << 32) + step // interval, "cpu")
 
 
 def assemble_losses(out: dict, entry: Entry, flags: LossFlags) -> dict:
@@ -90,7 +111,9 @@ def make_train_step(flags: LossFlags):
         with torch.enable_grad():
             out = state.model(entry, rel_memory=state.rel_memory, obj_memory=state.obj_memory,
                               mem_active=state.mem_active, phase="train", unc=False,
-                              noise=noise)
+                              noise=noise,
+                              performer=performer_noise(state.step,
+                                                        flags.performer_redraw_interval))
             losses = assemble_losses(out, entry, flags)
             total = sum(losses.values())
             total.backward()
