@@ -18,8 +18,9 @@ held at 1e-8 x max(1, max|ref|) in float64 (JAX in its x64 context):
 
 The port's own draws are held to their distribution: the orthogonal
 random matrix's blocks are orthonormal to 1e-10 in float64 and its row
-norms are chi-distributed, the ``rand`` identifiers are unit rows, and the
-test phase draws the same values on every call.
+norms are chi-distributed, the ``rand`` identifiers are unit rows, the
+test phase draws the same values on every call, and the train step's
+Performer draws change every ``performer_redraw_interval`` steps.
 """
 
 import jax
@@ -39,6 +40,7 @@ from vidsgg_torch.models.noise import Noise, fixed_noise
 from vidsgg_torch.models.performer import favor_attention, gaussian_orthogonal_random_matrix
 from vidsgg_torch.models.teatgt import TeatGTConfig
 from vidsgg_torch.models.tokengt import TokenGTEncoder
+from vidsgg_torch.train.steps import performer_noise
 
 TINY = dict(num_atoms=1168, num_output=26, embed_dim=32, layers=2, heads=4, ffn_dim=48)
 # (node_id_mode, performer, k)
@@ -99,6 +101,22 @@ def test_orthogonal_random_matrix_draws(rows, cols):
     again = gaussian_orthogonal_random_matrix(Noise.seeded(5, "cpu"), rows, cols, batch=3,
                                               dtype=torch.float64, device="cpu")
     assert torch.equal(m, again)
+
+
+def test_performer_draws_change_every_redraw_interval():
+    """The train step's Performer draws (``performer_noise``, the port's
+    ``performer_rng``): the same for every step of one redraw interval, new
+    at the next; each layer's projection is its own draw."""
+    def projections(step, interval=1000):
+        noise = performer_noise(step, interval)
+        return [gaussian_orthogonal_random_matrix(noise, 16, 8, dtype=torch.float64,
+                                                  device="cpu") for _ in range(2)]
+
+    first, last, next_ = projections(0), projections(999), projections(1000)
+    assert all(torch.equal(a, b) for a, b in zip(first, last, strict=True))
+    assert not any(torch.equal(a, b) for a, b in zip(first, next_, strict=True))
+    assert not torch.equal(first[0], first[1])
+    assert torch.equal(projections(3, 2)[0], projections(2, 2)[0])
 
 
 @pytest.mark.parametrize("mode", ["rand", "orf"])

@@ -61,18 +61,12 @@ def _softmax_kernel(x, projection, is_query: bool, eps: float = 1e-4):
     return (torch.exp(wx - sq - stab) + weak(eps, wx)) / weak(math.sqrt(m), wx)
 
 
-def favor_attention(q, k, v, key_mask=None, projection=None, noise=None,
-                    nb_features: int = 256):
+def favor_attention(q, k, v, key_mask, projection):
     """Linear attention with the softmax kernel. q/k/v: [..., T, d] per head;
-    ``key_mask``: [..., T] bool; ``projection``: [m, d], or None to draw
-    one of ``nb_features`` rows from ``noise``."""
-    if projection is None:
-        projection = gaussian_orthogonal_random_matrix(
-            noise, nb_features, q.shape[-1], dtype=draw_dtype(q), device=q.device)[0]
+    ``key_mask``: [..., T] bool; ``projection``: [m, d] (its caller draws
+    it: :func:`gaussian_orthogonal_random_matrix`)."""
     qp = _softmax_kernel(q, projection, is_query=True)
-    kp = _softmax_kernel(k, projection, is_query=False)
-    if key_mask is not None:
-        kp = kp * key_mask[..., None]
+    kp = _softmax_kernel(k, projection, is_query=False) * key_mask[..., None]
     v = v.to(kp.dtype)
     kv = torch.einsum("...tm,...td->...md", kp, v)
     z = 1.0 / (torch.einsum("...tm,...m->...t", qp, kp.sum(-2)) + weak(1e-6, qp))
