@@ -27,7 +27,7 @@ after each step: every loss term (``object_loss`` and
 every parameter and batch-norm statistic, every AdamW count (exactly) and
 both moments. The object bank of a TEAT-GT train state is [36, 1024] in
 every mode, as ``vidsgg``'s (its CLIs build the state without tracking),
-in the train CLI's state and in its checkpoint.
+in the train state and in its checkpoint.
 """
 
 import contextlib
@@ -64,6 +64,7 @@ from vidsgg_torch.convert import teatgt_from_jax
 from vidsgg_torch.models.graph_build import ClipCaps
 from vidsgg_torch.models.teatgt import TeatGT, TeatGTConfig
 from vidsgg_torch.train import LossFlags, create_train_state, make_train_step
+from vidsgg_torch.train.checkpoint import checkpoint_payload
 from vidsgg_torch.train.state import TEATGT_OBJ_DIM
 
 TINY = dict(encoder_layers=2, encoder_attention_heads=4, encoder_embed_dim=32,
@@ -184,27 +185,23 @@ def test_two_steps_of_teatgt_sgcls_training_match_vidsgg(monkeypatch):
 
 
 @pytest.mark.parametrize("mode", ["predcls", "sgcls", "sgdet"])
-def test_object_bank_is_1024_wide_in_every_mode(mode, tmp_path, monkeypatch):
-    """``teatgt_train`` builds its state with ``vidsgg``'s [36, 1024] object
-    bank in every mode (``TeatGTConfig.for_mode`` turns tracking on in sgcls
-    and sgdet, whose TEMPURA bank would be 2376 wide); its checkpoint holds
-    that bank, and ``teatgt_test --ckpt`` restores it."""
-    store = MemoryStore(monkeypatch, keep=("checkpoint_final",), train_cli=tcli_train,
-                        test_cli=tcli)
+def test_object_bank_is_1024_wide_in_every_mode(mode, monkeypatch):
+    """TEAT-GT's train state holds ``vidsgg``'s [36, 1024] object bank in
+    every mode (``TeatGTConfig.for_mode`` turns tracking on in sgcls and
+    sgdet, whose TEMPURA bank would be 2376 wide), as ``teatgt_train``
+    builds it (its runs against ``vidsgg``'s check the CLI's state:
+    ``test_torch_teatgt_train_cli_modes.py``); its checkpoint payload holds
+    that bank, and ``teatgt_test --ckpt``'s serving state restores it."""
     monkeypatch.setattr(tteatgt, "ObjectClassifier", functools.partial(
         tteatgt.ObjectClassifier, encoder_layers=TRACK_LAYERS))
-    # d = 32; one layer x 2 heads in predcls (sgcls and sgdet force 6 x 16)
-    model = ["--encoder_embed_dim", "32", "--encoder_ffn_embed_dim", "32", "--encoder_layers",
-             "1", "--encoder_attention_heads", "2"]
-    state = tcli_train.main(["--mode", mode, "--synthetic", "1", "--nepoch", "0",
-                             "--device", "cpu", "--save_path", str(tmp_path)] + model)
-    assert state.model.cfg.tracking == (mode != "predcls")
+    run_cfg = tcli.TeatGTRunConfig.from_args(["--mode", mode] + AG_MODEL)
+    model = TeatGT(run_cfg.model_config(tcli.SYNTHETIC_CLIPS), device="cpu")
+    assert model.cfg.tracking == (mode != "predcls")
+    state = create_train_state(model, obj_dim=TEATGT_OBJ_DIM, steps_per_epoch=1)
     assert tuple(state.obj_memory.shape) == (36, TEATGT_OBJ_DIM) == (36, 1024)
-    payload = store.load(str(tmp_path), "checkpoint_final")
-    assert tuple(payload["obj_memory"].shape) == (36, 1024)
-    served = tcli.restore_serving(tcli.build_relation_state(
-        tcli.TeatGTRunConfig.from_args(["--mode", mode] + model), tcli.SYNTHETIC_CLIPS, "cpu"),
-        payload)
+    payload = checkpoint_payload(state)
+    served = tcli.restore_serving(tcli.build_relation_state(run_cfg, tcli.SYNTHETIC_CLIPS,
+                                                            "cpu"), payload)
     assert tuple(served.obj_memory.shape) == (36, 1024)
 
 
@@ -213,7 +210,9 @@ def test_train_cli_on_an_ag_tree(mode, tmp_path, monkeypatch):
     """Over an Action Genome tree through the tiny detector (sgcls: GT
     boxes; sgdet: the detector's boxes, GT assignment and SUPPLY rows):
     the train videos with the object losses in their step lines, then
-    validation over the test split; the OSPU (one tracking layer) trained."""
+    validation over the test split (one 16-frame bucket: its two 3-frame
+    videos; the longer two skipped); the OSPU (one tracking layer)
+    trained."""
     root = write_ag_tree(tmp_path / "ag")
     store = MemoryStore(monkeypatch, train_cli=tcli_train, test_cli=tcli)
     monkeypatch.setattr(tteatgt, "ObjectClassifier", functools.partial(
@@ -221,7 +220,7 @@ def test_train_cli_on_an_ag_tree(mode, tmp_path, monkeypatch):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         state = tcli_train.main(["--mode", mode, "--data_path", root, "--frame_size", "48",
-                                 "--tiny_detector", "--bucket_frames", "32", "--nepoch", "1",
+                                 "--tiny_detector", "--bucket_frames", "16", "--nepoch", "1",
                                  "--log_iter", "1", "--device", "cpu", "--save_path",
                                  str(tmp_path / "run")] + AG_MODEL)
     out = out.getvalue()
